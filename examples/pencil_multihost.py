@@ -1,12 +1,13 @@
-"""Pod-scale execution: pencil decomposition + multi-host wiring.
+"""Multi-device execution: pencil decomposition + multi-host wiring.
 
 Run modes:
 
   # single process, 8 virtual CPU devices (works anywhere):
   python examples/pencil_multihost.py
 
-  # one process per host on a real multi-host TPU slice:
-  python examples/pencil_multihost.py --tpu
+  # one process per host of a real cluster (jax.distributed
+  # auto-detects SLURM / Open MPI; see parallel/multihost.py):
+  python examples/pencil_multihost.py --multihost
 
 The same Generator code covers every case; only the mesh construction
 and (on multi-host) the `multihost.initialize()` call differ.
@@ -17,9 +18,9 @@ import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-if "--tpu" in sys.argv:
-    # on a TPU pod slice each host runs this same script;
-    # initialize() auto-detects the coordinator and process ids
+if "--multihost" in sys.argv:
+    # each host runs this same script; initialize() auto-detects the
+    # coordinator and process ids from the cluster manager
     from randomfield_tpu.parallel import multihost
 
     multihost.initialize()

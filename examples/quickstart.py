@@ -1,7 +1,7 @@
 """Quickstart: one seeded realization + validation (config 1 workload).
 
 Run: PYTHONPATH=.. python quickstart.py   (from examples/), or from the
-repo root with PYTHONPATH=. — on TPU or CPU alike.
+repo root with PYTHONPATH=. — on GPU or CPU alike.
 """
 
 import sys

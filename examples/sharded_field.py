@@ -1,8 +1,8 @@
 """Spatially sharded rendering (config 5 pattern).
 
-On a real v5p-16 slice this renders a 2048^3 field with slab
-decomposition over 16 chips; here it runs the same program on whatever
-devices exist (use JAX_PLATFORMS=cpu + jax_num_cpu_devices for a virtual
+On four GPUs this renders a 2048^3 field with slab decomposition
+(chip_smoke.py --chips 4 checks it); here it runs the same program on
+whatever devices exist (use JAX_PLATFORMS=cpu + jax_num_cpu_devices for a virtual
 mesh).
 """
 

@@ -1,18 +1,18 @@
-"""randomfield_tpu — a TPU-native Gaussian random field engine.
+"""randomfield_tpu — a JAX Gaussian random field engine.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework with the capabilities of the
 reference package ``dkirkby/randomfield`` (see SURVEY.md): generate 3-D
 Gaussian random density fields delta(x) with a prescribed power spectrum
 P(k), with cosmological lightcone evolution along the line of sight.
 
-Architecture (TPU-first, not a port):
+Architecture (accelerator-first, not a port):
 
 - the reference's pyfftw in-place c2r plans  ->  jitted ``jnp.fft.irfftn``
   on device, plus a distributed slab-decomposed irfftn built on
-  ``shard_map`` + ``all_to_all`` over ICI for grids larger than one chip
+  ``shard_map`` + ``all_to_all`` for grids larger than one device
   (``randomfield_tpu.parallel``);
 - the reference's numpy ``RandomState`` half-spectrum sampling  ->
-  counter-based ``jax.random`` (and a fused Pallas PRNG kernel) producing
+  counter-based ``jax.random`` producing
   Hermitian-symmetric packed spectra (``randomfield_tpu.ops.sample``);
 - the reference's scipy/astropy powertools + cosmotools  ->  pure
   jnp/numpy implementations with no scipy/astropy dependency

@@ -202,27 +202,29 @@ def main(argv=None):
                    help="join a multi-host runtime first "
                         "(jax.distributed auto-detection; run one process "
                         "per host — see docs/parallelism.md)")
+    # no argparse choices: Generator validates the name, so an unknown
+    # sampler raises the same ValueError here as through the API
     p.add_argument("--sampler", default="threefry",
-                   choices=["threefry", "pallas", "nested"],
-                   help="mode sampler: partitionable Threefry (default; "
-                        "one canonical stream on every pipeline/mesh), "
-                        "'pallas' (fused hardware-PRNG kernel — its own "
-                        "stream family; on capable slab/pencil meshes "
-                        "renders bit-identically to single-chip), or "
-                        "'nested' (resolution-nested zoom stream)")
+                   help="mode sampler: 'threefry' (default; partitionable "
+                        "Threefry, one canonical stream on every "
+                        "pipeline/mesh) or 'nested' (resolution-nested "
+                        "zoom stream)")
     p.add_argument("--pipeline", default="auto",
                    choices=["auto", "fused", "staged"],
                    help="render pipeline (engine/staged.py:pick_pipeline; "
-                        "'auto' switches to the HBM-lean staged pipeline "
-                        "above 256M cells)")
+                        "'auto' switches to the memory-lean staged "
+                        "pipeline when the fused program would not fit "
+                        "the device)")
     p.add_argument("--quiet", action="store_true")
     args = p.parse_args(argv)
 
     import numpy as np
 
     import randomfield_tpu as rf
+    from randomfield_tpu.utils.cache import enable_compile_cache
     from randomfield_tpu.utils.io import save_field
 
+    enable_compile_cache()
     if args.multihost:
         from randomfield_tpu.parallel.multihost import initialize
 
@@ -413,8 +415,8 @@ def main(argv=None):
                           f"(exp {pp[1][i]:+12.2f})  P4 = {pl[2][i]:+11.2f} "
                           f"(exp {pp[2][i]:+11.2f})  ({nm[i]:8.0f} modes)")
         elif args.stats:
-            # axiswise moments: flat f32 mean/var on TPU underestimates
-            # variance 10-25% at >=256^3 (sequential accumulation)
+            # axiswise moments: a flat f32 mean/var over ~1e8 cells
+            # loses accuracy to sequential accumulation
             from randomfield_tpu.validate.stats import field_moments
 
             mean, var = field_moments(delta)

@@ -32,8 +32,7 @@ class ConstrainedMixin:
                 "materialized sigma grid (sampler='threefry' or 'nested', "
                 "pipeline='fused', mesh=None)"
             )
-        if (self.state.sigmas is None or self._layout != "xyz"
-                or self.sampler == "pallas"):
+        if self.state.sigmas is None or self._layout != "xyz":
             raise ValueError(
                 f"{what} needs a single-device fused scene with a "
                 "materialized sigma grid (sampler='threefry' or 'nested', "

@@ -5,7 +5,7 @@ the expensive scene setup once (sigma(k) tabulation, cosmological
 evolution, transform setup), then each ``generate_delta_field(seed)``
 renders one realization reusing that state (SURVEY.md sections 3.1-3.2).
 
-TPU-native design: the whole per-seed render — counter-based Hermitian
+Design: the whole per-seed render — counter-based Hermitian
 mode sampling, sigma scaling, Gaussian mode filtering, packed c2r inverse
 FFT, lightcone growth weighting — is ONE jitted XLA program (the north
 star's "fused render pass").  Sampling + scaling + filtering fuse into a
@@ -18,7 +18,6 @@ program over a seed axis, ready to shard over a data-parallel mesh axis
 from __future__ import annotations
 
 import functools
-import os
 import time
 
 import jax
@@ -33,6 +32,9 @@ from randomfield_tpu.ops import sample as _sample
 from randomfield_tpu.ops import transform as _transform
 
 __all__ = ["Generator", "render", "render_from_noise", "seeds_to_keys"]
+
+# the mode samplers a Generator accepts
+SAMPLERS = ("threefry", "nested")
 
 
 def _spectrum_from_noise_impl(draws, sigmas, smoothing_length, shape, spacing):
@@ -288,13 +290,11 @@ class Generator(MeasurementMixin, ConstrainedMixin):
     power : tabulated P(k) — (k, Pk) in h/Mpc, (Mpc/h)^3 — or None for
         the default linear table (ref: powertools.load_default_power).
     interpolation : 'log10k' (reference behavior) or 'loglog'.
-    dtype : render precision (float32 is native on TPU; the statistical
-        fidelity gate runs against the float64 oracle).
+    dtype : render precision (float32 is the device default; the
+        statistical fidelity gate runs against the float64 oracle).
     z0 : redshift of the nearest plane of the lightcone.
     sampler : 'threefry' (counter-based jax.random; layout-independent,
-        oracle-reproducible — the default), 'pallas' (fused hardware-PRNG
-        kernel, ops/pallas_sampler.py; its own deterministic stream,
-        validated statistically; TPU only), or 'nested'
+        oracle-reproducible — the default) or 'nested'
         (resolution-nested draws keyed by SIGNED mode indices,
         ops/sample.py:sample_unit_hermitian_nested: grids of different
         size over the same box share every common mode — zoom-matched
@@ -345,18 +345,11 @@ class Generator(MeasurementMixin, ConstrainedMixin):
                     "pipeline='auto' or 'fused'"
                 )
             self.pipeline = "fused"
-        if sampler not in ("threefry", "pallas", "nested"):
-            raise ValueError(f"unknown sampler {sampler!r}")
-        if sampler == "pallas" and mesh is not None:
-            from randomfield_tpu.parallel.render import can_mesh_pallas
-
-            if not can_mesh_pallas(mesh, self.scene.shape):
-                raise ValueError(
-                    "sampler='pallas' on a mesh needs a slab mesh with a "
-                    "Pallas-transformable shape and ny divisible by "
-                    "128 * space (parallel/render.py:can_mesh_pallas); "
-                    "use sampler='threefry' otherwise"
-                )
+        if sampler not in SAMPLERS:
+            raise ValueError(
+                f"unknown sampler {sampler!r}: choose 'threefry' (the "
+                f"default counter-based stream) or 'nested'"
+            )
         if sampler == "nested":
             from randomfield_tpu.ops.sample import NESTED_MAX_DIM
 
@@ -373,19 +366,6 @@ class Generator(MeasurementMixin, ConstrainedMixin):
                     f"{self.scene.shape}"
                 )
             self.pipeline = "fused"
-        if sampler == "pallas" and mesh is None:
-            # ONE Pallas family at every grid size: the hardware stream's
-            # tile geometry depends on (shape, layout), so letting 'auto'
-            # pick layout 'xyz' below the staged threshold and 'xzy' above
-            # it would change the realization family exactly like the
-            # round-3 Threefry auto trap.  Pallas scenes therefore always
-            # run the (x, kz, y) staged machinery (one fused program where
-            # shapes allow — engine/staged.py:render_v3); the ``pipeline``
-            # argument is ignored for this sampler.  (Mesh-pallas scenes
-            # keep the mesh pipeline and sample the SAME global xzy
-            # stream per shard — parallel/render.py:
-            # make_sharded_render_pallas.)
-            self.pipeline = "staged"
         layout = "xzy" if self.pipeline == "staged" else "xyz"
         self.sampler = sampler
         self._nested = sampler == "nested"
@@ -393,41 +373,12 @@ class Generator(MeasurementMixin, ConstrainedMixin):
         self._dtype = jnp.dtype(dtype)
         self.mesh = mesh
         self._multiprocess = False
-        # mesh scenes never store a sigma grid: sigma is evaluated inline
-        # per shard from the (tiny) table inside every sharded program
-        # (parallel/render.py), so sigma costs zero resident HBM at any
-        # mesh shape — a materialized (sharded) grid is built lazily only
-        # if the .sigmas property is read
-        from randomfield_tpu.engine.staged import _use_v3
-
-        # Threefry staged scenes on TPU render tableless (unit draws +
-        # the in-place Pallas sigma-interp scale kernel): no sigma grid
-        # is tabulated up front — 2 GiB resident + one full read per
-        # render at 1024^3 — and the ``sigmas`` property materializes
-        # one lazily for the few methods that need the grid itself.
-        self._staged_threefry_v3 = (
-            mesh is None and sampler == "threefry"
-            and self.pipeline == "staged" and _use_v3(self.scene.shape)
-        )
+        # mesh scenes store no sigma grid up front: the first sharded
+        # program that needs one materializes it, each shard on its own
+        # device (the .sigmas property; _mesh_sigmas)
         self.state, self._aux = _scene.build_state(
-            self.scene, power, layout=layout,
-            with_sigmas=(
-                mesh is None and sampler != "pallas"
-                and not self._staged_threefry_v3
-            ),
+            self.scene, power, layout=layout, with_sigmas=mesh is None,
         )
-        if sampler == "pallas" or self._staged_threefry_v3:
-            # the fused/scale kernels interpolate sigma(k) from a small
-            # uniform log10-k table in VMEM — no sigma grid is stored or
-            # read.  Always the 'xzy' table: every Pallas sampling/scale
-            # path (staged single-device, mesh shards, threefry scale)
-            # works in the (x, kz, y) order.
-            from randomfield_tpu.ops.pallas_sampler import make_sigma_table
-
-            self._pallas_table = make_sigma_table(
-                self._aux["power"], self.scene.shape, self.scene.grid_spacing,
-                interpolation, layout="xzy",
-            )
         self._table_host = _power.table_arrays_host(
             self._aux["power"], interpolation, dtype
         )
@@ -458,10 +409,8 @@ class Generator(MeasurementMixin, ConstrainedMixin):
             if self.state.sigmas is not None:
                 mb = self.state.sigmas.size * self._dtype.itemsize / 2**20
                 sig_note = f"sigma grid {mb:.1f} MiB"
-            elif self.mesh is not None:
-                sig_note = "sigma inline (mesh)"
             else:
-                sig_note = "sigma table in VMEM (no grid)"
+                sig_note = "sharded sigma grid built on first use (mesh)"
             print(
                 f"[randomfield_tpu] scene setup {time.perf_counter() - t0:.3f}s, "
                 f"{sig_note}, k in [{self.k_min:.4g}, {self.k_max:.4g}] h/Mpc"
@@ -503,9 +452,9 @@ class Generator(MeasurementMixin, ConstrainedMixin):
     def sigmas(self):
         """The per-mode sigma grid (device array).
 
-        Mesh scenes evaluate sigma inline inside their sharded programs
-        and store nothing; reading this property materializes a SHARDED
-        grid on demand (x over the innermost spatial axis for pencil
+        Mesh scenes store none at construction; the first read (every
+        mesh program reads it, see :meth:`_mesh_sigmas`) materializes a
+        SHARDED grid (x over the innermost spatial axis for pencil
         meshes, ky-slabs for slab meshes) and caches it.
         """
         if self.state.sigmas is None:
@@ -518,11 +467,6 @@ class Generator(MeasurementMixin, ConstrainedMixin):
         from randomfield_tpu.parallel.mesh import P, SPACE_AXIS, spectrum_sharding
 
         mesh = self.mesh
-        if mesh is None:  # pallas scenes: plain single-device tabulation
-            return _power.tabulate_sigmas(
-                self.scene.shape, self.scene.grid_spacing, self._aux["power"],
-                self.scene.interpolation, self._dtype, layout=self._layout,
-            )
         if _pencil.is_pencil_mesh(mesh):
             # fully sharded state-0 placement: x over 'spy', ky over
             # 'spx' — per-device bytes scale as 1/(px*py), unlike the
@@ -547,65 +491,15 @@ class Generator(MeasurementMixin, ConstrainedMixin):
         """(log10k, P) interpolation arrays for program inputs."""
         return self._table_host[0], self._table_host[1]
 
-    def _mesh_stable(self):
-        """Cached 'xyz'-layout SigmaTable for the per-shard scale kernel.
-
-        The mesh Threefry render programs interpolate sigma(|k|) from
-        this tiny uniform log10-k table inside a per-shard Pallas kernel
-        (ops/pallas_sampler.py:scale_shard_pallas_reim) — zero sigma
-        bytes resident on any device, same table-sigma flavor as the
-        single-chip tableless staged path (VERDICT r4 item 3; the
-        round-4 alternative materialized a sharded grid, 2 GiB resident
-        + one read per render at 1024^3)."""
-        tab = getattr(self, "_mesh_stable_cache", None)
-        if tab is None:
-            from randomfield_tpu.ops.pallas_sampler import make_sigma_table
-
-            tab = make_sigma_table(
-                self._aux["power"], self.scene.shape,
-                self.scene.grid_spacing, self.scene.interpolation,
-                layout="xyz",
-            )
-            self._mesh_stable_cache = tab
-        return tab
-
-    def _mesh_scale_args(self, fixed=False):
-        """(scale_kernel, sig_arg) for the mesh Threefry render programs.
-
-        The Pallas scale-kernel table where the kernel runs (TPU, or
-        CPU meshes under RF_MESH_PALLAS=1), else the materialized
-        sharded sigma grid.  ``fixed`` and nested scenes always use the
-        grid (their sampling normalizes against sigma directly)."""
-        from randomfield_tpu.parallel.render import use_scale_kernel
-
-        if not fixed and not self._nested and use_scale_kernel():
-            lk0, dlk, stab = self._mesh_stable()
-            return True, (jnp.float32(lk0), jnp.float32(1.0 / dlk),
-                          jnp.asarray(stab))
-        return False, self._mesh_sigmas()
-
     def _mesh_sigmas(self):
-        """The cached SHARDED sigma grid every mesh program reads.
-
-        Materialized once per scene (the same sigma_inline expression the
-        programs previously evaluated inline — identical values) because
-        this runtime's table-interpolation gathers cost ~7 s at 512^3
-        PER RENDER when inlined (round-4 measurement).  One half-spectrum
-        f32 shard per device is the price; at 2048^3 over 16 devices that
-        is ~1.1 GB/device — proportionate, unlike the round-2 replicated
-        placement this layer once had.
-
-        Every mesh program that samples the partitionable Threefry
-        stream reads this — so it doubles as the chokepoint rejecting
-        those programs on hardware-sampler scenes, whose renders belong
-        to a different realization family."""
-        if self.sampler == "pallas":
-            raise ValueError(
-                "mesh scenes with sampler='pallas' support plain renders "
-                "only (the hardware stream is its own realization "
-                "family); build the Generator with sampler='threefry' "
-                "for derived fields, estimators and constrained renders"
-            )
+        """The sigma argument of the mesh render programs: the scene's
+        materialized sharded grid (:attr:`sigmas`, built on first use
+        and cached).  Reading it is faster than evaluating sigma inline
+        per shard (ops/power.py:sigma_inline, selected by passing None):
+        a 1024^3 slab render on four H100s takes 20 ms with the grid and
+        42 ms inline, whose table gathers dominate the trace (PERF.md
+        "Bring-up findings").  The price is one half-spectrum f32 shard
+        per device."""
         return self.sigmas
 
     def predicted_variance(self, smoothing_length=0.0, apply_lightcone=False):
@@ -691,102 +585,31 @@ class Generator(MeasurementMixin, ConstrainedMixin):
             seed, smoothing_length, apply_lightcone
         )
 
-    def _mesh_pallas_render(self, seed, smoothing_length, apply_lightcone):
-        """One mesh render on the hardware-PRNG sampler.
-
-        Bit-identical to the single-device ``sampler='pallas'`` render
-        of the same seed at any shard count (parallel/render.py:
-        make_sharded_render_pallas samples each shard's slice of the
-        global xzy stream by global tile id)."""
-        from randomfield_tpu.parallel.render import make_sharded_render_pallas
-
-        fn = make_sharded_render_pallas(
-            self.mesh, self.scene.shape, self.scene.grid_spacing,
-            dtype_name=str(self._dtype),
-        )
-        lk0, dlk, stab = self._pallas_table
-        return fn(
-            int(seed) & 0x7FFFFFFF, self._smoothing(smoothing_length),
-            lk0, 1.0 / dlk, jnp.asarray(stab),
-            self._weights(apply_lightcone),
-        )
-
     def _generate_delta_field(self, seed, smoothing_length, apply_lightcone):
         t0 = time.perf_counter()
         if self.mesh is not None:
-            if self.sampler == "pallas":
-                out = self._mesh_pallas_render(seed, smoothing_length,
-                                               apply_lightcone)
-                return self._maybe_verbose(out, seed, t0)
             from randomfield_tpu.parallel.render import make_sharded_render
 
-            scale_kernel, sig = self._mesh_scale_args()
             fn = make_sharded_render(
                 self.mesh, self.scene.shape, self.scene.grid_spacing,
                 from_seed=self._multiprocess,
                 log_values=self._table_host[2], dtype_name=str(self._dtype),
-                nested=self._nested, scale_kernel=scale_kernel,
+                nested=self._nested,
             )
             lk, val = self._table_args()
             out = fn(
                 self._seed_u32(seed) if self._multiprocess else _as_key(seed),
-                lk, val, sig, self._weights(apply_lightcone),
+                lk, val, self._mesh_sigmas(), self._weights(apply_lightcone),
                 self._smoothing(smoothing_length),
             )
-        elif self.sampler == "pallas":
-            # fused Pallas PRNG sampling kernel (hardware PRNG stream,
-            # distinct from the Threefry stream; see ops/pallas_sampler.py)
-            from randomfield_tpu.ops.pallas_sampler import sample_spectrum_pallas
-
-            from randomfield_tpu.engine.staged import _use_v3
-
-            if self._layout == "xzy" and _use_v3(self.scene.shape):
-                # re/im-native v3: ONE fused program from Pallas sampling
-                # through the weighted field (engine/staged.py:render_v3)
-                from randomfield_tpu.engine.staged import render_v3
-
-                return self._maybe_verbose(
-                    render_v3(
-                        int(seed), self._pallas_table, self.scene.shape,
-                        self.scene.grid_spacing, str(self._dtype),
-                        self._weights(apply_lightcone), smoothing_length,
-                    ),
-                    seed, t0,
-                )
-            c = sample_spectrum_pallas(
-                int(seed), self._pallas_table, self.scene.shape,
-                self.scene.grid_spacing, smoothing_length, layout=self._layout,
-            )
-            if self._layout == "xzy":
-                from randomfield_tpu.engine.staged import finish_staged
-
-                out = finish_staged(
-                    c, self._weights(apply_lightcone), self.scene.shape,
-                    self.scene.grid_spacing, str(self._dtype),
-                )
-            else:
-                out = _finish_render(
-                    c, self._weights(apply_lightcone), self.scene.shape
-                )
         elif self.pipeline == "staged":
-            from randomfield_tpu.engine.staged import (
-                _use_v3, render_v3_threefry, staged_render,
-            )
+            from randomfield_tpu.engine.staged import staged_render
 
-            if self._staged_threefry_v3 and _use_v3(self.scene.shape):
-                out = render_v3_threefry(
-                    _as_key(seed), self._pallas_table, self.scene.shape,
-                    self.scene.grid_spacing, str(self._dtype),
-                    self._weights(apply_lightcone),
-                    jnp.asarray(smoothing_length, self._dtype),
-                )
-            else:
-                out = staged_render(
-                    _as_key(seed), self.sigmas,
-                    self._weights(apply_lightcone),
-                    jnp.asarray(smoothing_length, self._dtype),
-                    self.scene.shape, self.scene.grid_spacing,
-                )
+            out = staged_render(
+                _as_key(seed), self.sigmas, self._weights(apply_lightcone),
+                jnp.asarray(smoothing_length, self._dtype),
+                self.scene.shape, self.scene.grid_spacing,
+            )
         else:
             out = render(
                 _as_key(seed), self.state.sigmas, self._weights(apply_lightcone),
@@ -819,15 +642,14 @@ class Generator(MeasurementMixin, ConstrainedMixin):
         single-device path and on slab/pencil meshes (the magnitude
         normalization is elementwise on the shard-local draws, so the
         sharded fixed field equals the single-device one exactly); the
-        Pallas/staged pipelines stream the spectrum and never
-        materialize per-mode magnitudes, so they raise.
+        staged pipeline streams the spectrum and never materializes
+        per-mode magnitudes, so it raises.
         """
-        if self.sampler == "pallas" or self.pipeline != "fused":
+        if self.pipeline != "fused":
             raise ValueError(
-                "fixed fields need the Threefry fused (or mesh) path "
-                "(the Pallas/staged pipelines stream the spectrum); "
-                "build the Generator with sampler='threefry', "
-                "pipeline='fused'"
+                "fixed fields need the fused (or mesh) path (the staged "
+                "pipeline streams the spectrum); build the Generator "
+                "with pipeline='fused'"
             )
         t0 = time.perf_counter()
         if self.mesh is not None:
@@ -863,14 +685,8 @@ class Generator(MeasurementMixin, ConstrainedMixin):
         :meth:`generate_from_noise` consumes the same contract, and
         ``generate_from_noise(generate_noise(s)) ==
         generate_delta_field(s)`` exactly on the fused pipeline (both
-        Threefry and nested streams; the Pallas hardware-PRNG stream
-        has no exportable pre-kernel state).
+        Threefry and nested streams).
         """
-        if self.sampler == "pallas":
-            raise ValueError(
-                "sampler='pallas' draws inside the fused kernel; there is "
-                "no exportable pre-kernel noise state"
-            )
         if self.pipeline != "fused":
             raise ValueError(
                 "noise export matches the fused pipeline's draw order; "
@@ -926,11 +742,10 @@ class Generator(MeasurementMixin, ConstrainedMixin):
         calls; for 'fixed & paired' ensembles render the batch twice
         (``flip=False`` and ``flip=True``) and average the statistics.
         """
-        if self.sampler == "pallas" or self.pipeline != "fused":
+        if self.pipeline != "fused":
             raise ValueError(
-                "fixed fields need the Threefry fused (or mesh) path; "
-                "build the Generator with sampler='threefry', "
-                "pipeline='fused'"
+                "fixed fields need the fused (or mesh) path; build the "
+                "Generator with pipeline='fused'"
             )
         keys = seeds_to_keys(seeds)
         if self.mesh is not None:
@@ -964,75 +779,14 @@ class Generator(MeasurementMixin, ConstrainedMixin):
 
         The leading axis of the result is the seed axis; shard it over a
         'data' mesh axis for data-parallel covariance studies (config 4).
-        With ``sampler='pallas'`` the batch loops the single-seed kernel
-        (its hardware-PRNG stream has no vmapped form), so batch and
-        single-seed renders agree exactly on every configuration.
         """
-        if self.sampler == "pallas":
-            # reuse the single-seed Pallas stream so a batch of [s] equals
-            # generate_delta_field(s) exactly (the vmapped path below would
-            # silently switch to the Threefry stream)
-            from randomfield_tpu.engine import staged as _staged
-
-            seeds_arr = np.asarray(seeds)
-            if self.mesh is not None:
-                # one data-parallel program: seeds shard over 'data',
-                # each row lax.maps the same global-stream shard
-                # sampler — per-seed fields bit-identical to singles
-                from randomfield_tpu.parallel.render import (
-                    make_sharded_render_pallas_batch,
-                )
-
-                fn = make_sharded_render_pallas_batch(
-                    self.mesh, self.scene.shape, self.scene.grid_spacing,
-                    dtype_name=str(self._dtype),
-                )
-                lk0, dlk, stab = self._pallas_table
-                return fn(
-                    np.asarray(
-                        [int(s) & 0x7FFFFFFF for s in seeds_arr.ravel()],
-                        np.int32,
-                    ),
-                    self._smoothing(smoothing_length),
-                    lk0, 1.0 / dlk, jnp.asarray(stab),
-                    self._weights(apply_lightcone),
-                )
-            if (
-                self.pipeline == "staged" and self._layout == "xzy"
-                and self.mesh is None
-                and _staged.can_batch_staged(self.scene.shape, len(seeds_arr))
-                and os.environ.get("RF_STAGED_V3_MERGE", "1") != "0"
-            ):
-                # ONE program lax.maps the fused render over the seeds —
-                # bit-identical per-seed fields, ~30 ms dispatch paid once
-                return _staged.render_v3_batch(
-                    seeds_arr, self._pallas_table, self.scene.shape,
-                    self.scene.grid_spacing, str(self._dtype),
-                    self._weights(apply_lightcone), smoothing_length,
-                )
-            return jnp.stack([
-                self.generate_delta_field(
-                    int(s), smoothing_length, apply_lightcone
-                )
-                for s in seeds_arr
-            ])
         keys = None if self._multiprocess else seeds_to_keys(seeds)
         if self.mesh is None and self.pipeline == "staged":
             # staged grids are near the HBM ceiling: render sequentially
-            from randomfield_tpu.engine.staged import (
-                _use_v3, render_v3_threefry, staged_render,
-            )
+            from randomfield_tpu.engine.staged import staged_render
 
             sm = jnp.asarray(smoothing_length, self._dtype)
             w = self._weights(apply_lightcone)
-            if self._staged_threefry_v3 and _use_v3(self.scene.shape):
-                return jnp.stack([
-                    render_v3_threefry(
-                        keys[i], self._pallas_table, self.scene.shape,
-                        self.scene.grid_spacing, str(self._dtype), w, sm,
-                    )
-                    for i in range(len(keys))
-                ])
             return jnp.stack([
                 staged_render(
                     keys[i], self.sigmas, w, sm,
@@ -1043,19 +797,18 @@ class Generator(MeasurementMixin, ConstrainedMixin):
         if self.mesh is not None:
             from randomfield_tpu.parallel.render import make_sharded_render_batch
 
-            scale_kernel, sig = self._mesh_scale_args()
             fn = make_sharded_render_batch(
                 self.mesh, self.scene.shape, self.scene.grid_spacing,
                 from_seed=self._multiprocess,
                 log_values=self._table_host[2], dtype_name=str(self._dtype),
-                nested=self._nested, scale_kernel=scale_kernel,
+                nested=self._nested,
             )
             first = (
                 np.asarray(seeds, np.uint32) if self._multiprocess else keys
             )
             lk, val = self._table_args()
             return fn(
-                first, lk, val, sig,
+                first, lk, val, self._mesh_sigmas(),
                 self._weights(apply_lightcone),
                 self._smoothing(smoothing_length),
             )
@@ -1103,17 +856,15 @@ class Generator(MeasurementMixin, ConstrainedMixin):
             from randomfield_tpu.parallel.multihost import replicated_to_host
             from randomfield_tpu.parallel.render import make_sharded_spectrum_bins
 
-            scale_kernel, sig = self._mesh_scale_args()
             fn = make_sharded_spectrum_bins(
                 self.mesh, self.scene.shape, self.scene.grid_spacing,
                 int(nbins), from_seed=self._multiprocess,
                 log_values=self._table_host[2], dtype_name=str(self._dtype),
-                scale_kernel=scale_kernel,
             )
             lk, val = self._table_args()
             counts, psum, ksum = fn(
                 self._seed_u32(seed) if self._multiprocess else _as_key(seed),
-                lk, val, sig,
+                lk, val, self._mesh_sigmas(),
                 self._smoothing(smoothing_length),
             )
             counts = replicated_to_host(counts).astype(np.float64)
@@ -1121,24 +872,6 @@ class Generator(MeasurementMixin, ConstrainedMixin):
             ksum = replicated_to_host(ksum).astype(np.float64)
             with np.errstate(invalid="ignore", divide="ignore"):
                 return ksum / counts, psum / counts, counts
-
-        if self.sampler == "pallas" and self._layout == "xzy":
-            from randomfield_tpu.engine.staged import (
-                _pallas_compiled, sample_power_v3,
-            )
-
-            if _pallas_compiled():
-                # one fused program: Pallas sampling straight into the
-                # one-hot binning — no spectrum buffer, no boundary
-                counts, psum, ksum = sample_power_v3(
-                    int(seed), self._pallas_table, self.scene.shape,
-                    self.scene.grid_spacing, int(nbins), smoothing_length,
-                )
-                counts = np.asarray(counts, np.float64)
-                psum = np.asarray(psum, np.float64)
-                ksum = np.asarray(ksum, np.float64)
-                with np.errstate(invalid="ignore", divide="ignore"):
-                    return ksum / counts, psum / counts, counts
 
         sm = jnp.asarray(smoothing_length, self._dtype)
         c = self._sampled_spectrum(seed, sm)
@@ -1149,37 +882,11 @@ class Generator(MeasurementMixin, ConstrainedMixin):
     def sample_power_batch(self, seeds, smoothing_length=0.0, nbins=32):
         """:meth:`sample_power` for a seed batch, one program when possible.
 
-        With ``sampler='pallas'`` on hardware the batch runs as a single
-        ``lax.map`` over the in-kernel binned sampler — per-seed results
-        identical to :meth:`sample_power`, per-dispatch sync paid once
-        (at 1024^3 the sync is ~a third of the ~0.1 s per-seed cost).
-        Other configurations fall back to the per-seed loop.  Returns
-        host float64 ``(k_mean, p_hat[nseeds, nbins], n_modes)`` in
-        ``seeds`` order (k_mean/n_modes are seed-independent).
+        Loops :meth:`sample_power` over the seeds.  Returns host float64
+        ``(k_mean, p_hat[nseeds, nbins], n_modes)`` in ``seeds`` order
+        (k_mean/n_modes are seed-independent).
         """
         seeds_list = [int(s) for s in np.asarray(seeds).ravel()]
-        if (
-            self.mesh is None and self.sampler == "pallas"
-            and self._layout == "xzy"
-        ):
-            from randomfield_tpu.engine.staged import (
-                _pallas_compiled, sample_power_v3_batch,
-            )
-
-            if _pallas_compiled():
-                counts, psum, ksum = sample_power_v3_batch(
-                    seeds_list, self._pallas_table, self.scene.shape,
-                    self.scene.grid_spacing, int(nbins), smoothing_length,
-                )
-                counts = np.asarray(counts, np.float64)
-                psum = np.asarray(psum, np.float64)
-                ksum = np.asarray(ksum, np.float64)
-                with np.errstate(invalid="ignore", divide="ignore"):
-                    return (
-                        ksum[0] / counts[0],
-                        psum / counts,
-                        counts[0],
-                    )
         ks = ms = None
         rows = []
         for s in seeds_list:
@@ -1197,13 +904,6 @@ class Generator(MeasurementMixin, ConstrainedMixin):
                 "mesh scenes never materialize a full spectrum; "
                 "sample_power and the derived-field generators run "
                 "their own sharded programs"
-            )
-        if self.sampler == "pallas":
-            from randomfield_tpu.ops.pallas_sampler import sample_spectrum_pallas
-
-            return sample_spectrum_pallas(
-                int(seed), self._pallas_table, self.scene.shape,
-                self.scene.grid_spacing, sm, layout=self._layout,
             )
         if self.pipeline == "staged":
             from randomfield_tpu.engine.staged import _stage_p1
@@ -1238,12 +938,10 @@ class Generator(MeasurementMixin, ConstrainedMixin):
             # transform (parallel/render.py:make_sharded_derived)
             from randomfield_tpu.parallel.render import make_sharded_derived
 
-            scale_kernel, sig = self._mesh_scale_args()
             fn = make_sharded_derived(
                 self.mesh, self.scene.shape, self.scene.grid_spacing,
                 kind, int(component), from_seed=self._multiprocess,
                 log_values=self._table_host[2], dtype_name=str(self._dtype),
-                scale_kernel=scale_kernel,
             )
             lk, val = self._table_args()
             if self._multiprocess:
@@ -1252,7 +950,7 @@ class Generator(MeasurementMixin, ConstrainedMixin):
                 pref_in = jnp.asarray(prefactor, self._dtype)
             return fn(
                 self._seed_u32(seed) if self._multiprocess else _as_key(seed),
-                lk, val, sig, pref_in,
+                lk, val, self._mesh_sigmas(), pref_in,
                 self._smoothing(smoothing_length),
             )
         sm = jnp.asarray(smoothing_length, self._dtype)

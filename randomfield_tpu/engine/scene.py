@@ -2,7 +2,7 @@
 
 The reference's ``Generator.__init__`` mixes configuration and expensive
 precomputation into one object (randomfield/generate.py:Generator).  On
-TPU the natural split is:
+an accelerator the natural split is:
 
 * :class:`Scene` — a frozen, hashable spec (shape, spacing, cosmology,
   options).  Hashable means it can be a jit static argument, so each scene

@@ -33,9 +33,9 @@ convention as ``ops.power.filter_modes`` — with the imaginary part zeroed
 at true self-conjugate modes (the symmetric band-limited interpolation
 choice; exact for positions on grid points, where that phase is +-1).
 
-TPU-native design: kernels are never materialized globally — Gamma, the
+Design: kernels are never materialized globally — Gamma, the
 Gram matrix xi, and the correction are accumulated per x-slab chunk under
-``lax.map``, with the Gram contraction expressed as real matmuls (MXU).
+``lax.map``, with the Gram contraction expressed as real matmuls.
 Everything from sampling through the constrained inverse transform is one
 jitted program; constraint positions/scales/values are traced, so moving
 or re-valuing constraints never recompiles.
@@ -211,8 +211,10 @@ def _gram_jit(sigmas, pos, scales, sm, shape, spacing, chunks):
         m = pos.shape[0]
         a_r = (kr * w[None]).reshape(m, -1)
         a_i = (ki * w[None]).reshape(m, -1)
+        hi = jax.lax.Precision.HIGHEST
         return (
-            a_r @ kr.reshape(m, -1).T + a_i @ ki.reshape(m, -1).T
+            jnp.matmul(a_r, kr.reshape(m, -1).T, precision=hi)
+            + jnp.matmul(a_i, ki.reshape(m, -1).T, precision=hi)
         )
 
     parts = jax.lax.map(
@@ -236,10 +238,11 @@ def _measure_chunked(c, pos, scales, shape, spacing, chunks):
         kr, ki = _kernel_chunk(kxs, sxs, ky, kz, sy, sz, pos, scales)
         w = mult[None, None, :]
         m = pos.shape[0]
-        contrib = kr.reshape(m, -1) @ (w * re).reshape(-1) - ki.reshape(
-            m, -1
-        ) @ (w * im).reshape(-1)
-        return contrib
+        hi = jax.lax.Precision.HIGHEST
+        return (
+            jnp.matmul(kr.reshape(m, -1), (w * re).reshape(-1), precision=hi)
+            - jnp.matmul(ki.reshape(m, -1), (w * im).reshape(-1), precision=hi)
+        )
 
     parts = jax.lax.map(
         one, (kx.reshape(chunks, cx), sx.reshape(chunks, cx), cr, ci)
@@ -259,8 +262,9 @@ def _correction_chunked(sigmas, alpha, pos, scales, sm, shape, spacing,
         kxs, sxs, sig = args
         kr, ki = _kernel_chunk(kxs, sxs, ky, kz, sy, sz, pos, scales)
         se2 = _sigma_eff2_chunk(sig, kxs, ky, kz, sm)
-        dr = se2 * jnp.tensordot(alpha, kr, axes=1)
-        di = -se2 * jnp.tensordot(alpha, ki, axes=1)
+        hi = jax.lax.Precision.HIGHEST
+        dr = se2 * jnp.tensordot(alpha, kr, axes=1, precision=hi)
+        di = -se2 * jnp.tensordot(alpha, ki, axes=1, precision=hi)
         return jax.lax.complex(dr, di)
 
     parts = jax.lax.map(
@@ -387,9 +391,9 @@ def _kernel_m(m, pos, scales, axis_geom):
 
 def _sigma_eff2_global(shape, spacing, lk_tab, val_tab, log_values, dtype,
                        sm, sigmas=None):
-    # sigmas: materialized sharded grid (Generator._mesh_sigmas) — the
-    # inline interpolation's gathers cost seconds per call on this
-    # runtime (parallel/render.py:_sampled_spectrum)
+    # sigmas: the materialized sharded grid (Generator._mesh_sigmas),
+    # faster to read than the inline interpolation's gathers
+    # (parallel/render.py:_sampled_spectrum); None evaluates it inline
     if sigmas is None:
         sig = _power.sigma_inline(
             shape, spacing, lk_tab, val_tab, log_values, dtype, layout="xyz"

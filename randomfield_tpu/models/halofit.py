@@ -29,7 +29,7 @@ NFW) as an independent nonlinear P(k); the fitting formula is the one
 calibrated against N-body suites and the standard choice for lensing
 kernels and mock covariances.  The 2015 reference package is
 linear-theory only (SURVEY.md section 0) — capability expansion.
-Host-side float64 numpy (1-D quadratures; not MXU work).
+Host-side float64 numpy (1-D quadratures; not device work).
 """
 
 from __future__ import annotations

@@ -22,7 +22,7 @@ spectrum), E[lam_i] = n_i V_cell exactly, and the count overdensity
 has expectation spectrum  exp(b_i^2 xi_G) - 1  -> b_i^2 P(k) at linear
 order, plus 1/n_i shot noise — all three gated in tests/test_halos.py.
 
-TPU-native design: the "catalog" is grid-shaped — an (nm, nx, ny, nz)
+Design: the "catalog" is grid-shaped — an (nm, nx, ny, nz)
 integer count cube from one compiled program (`lax.scan` over mass
 bins bounds memory to one float grid), matching models/zeldovich.py's
 grid-shaped catalogs.  Host-side compaction to a ragged

@@ -35,7 +35,7 @@ interpolator from models/halomodel.py.
 
 Host-float64 analysis utilities (like ops/fftlog.py and
 models/baofit.py): the integrals are tiny 1-D quadratures; nothing here
-belongs on the TPU.
+belongs on the device.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ oscillations — which tracks CAMB at the few-percent level.  Units follow
 the reference: k in h/Mpc, P in (Mpc/h)^3, normalized to the cosmology's
 sigma8.
 
-All float64 numpy; this runs once at setup, never on the TPU hot path.
+All float64 numpy; this runs once at setup, never on the device hot path.
 """
 
 from __future__ import annotations

@@ -16,7 +16,7 @@ beta = f/b removing the linear Kaiser distortion (``f=0`` for
 real-space input).  The combination delta_d - delta_s cancels the
 shift-induced large-scale modes, leaving the linearized field.
 
-Everything is grid-shaped and jitted (TPU-native: the "catalog" is the
+Everything is grid-shaped and jitted (device-native: the "catalog" is the
 painted field, models/zeldovich.py conventions); catalog-level
 workflows displace their own positions with
 :func:`displacement_at_positions`.

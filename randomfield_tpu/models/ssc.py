@@ -24,7 +24,7 @@ The 2015 reference package is linear-theory only with no covariance
 machinery (SURVEY.md section 0) — capability expansion.  Complements
 the EXACT Gaussian block (validate/ensemble.py:predicted_power_covariance)
 which this matrix simply adds to.  Host-side float64 numpy (1-D table
-calculus; not MXU work).
+calculus; not device work).
 """
 
 from __future__ import annotations

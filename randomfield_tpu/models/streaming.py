@@ -43,7 +43,7 @@ out-of-reference additions), pairing with the measured-side estimators
 (validate/stats.py:calculate_correlation_multipoles, models/hod.py RSD
 catalogs, validate/velocity.py v12).  Like models/spt.py and
 models/irresum.py this is host-side float64 numpy: 1-D theory
-quadratures are latency-bound scalar work, not MXU work.
+quadratures are latency-bound scalar work, not device work.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Voids — large underdense regions — are the density troughs whose
 abundance and sizes probe growth and dark energy complementarily to
 peaks and halos.  This module implements the standard
-spherical-underdensity (SO) definition the TPU-friendly way: instead of
+spherical-underdensity (SO) definition the accelerator-friendly way: instead of
 growing spheres around candidate centers one by one (data-dependent
 loops), the mean ENCLOSED density contrast at every voxel for a ladder
 of radii comes from FFT top-hat convolutions — one elementwise spectral

@@ -17,7 +17,7 @@ fractions at threshold 0 to universal constants (~8 / 42 / 42 / 8 %).
 The test suite Monte-Carlos that exact covariance independently and
 gates the field-measured fractions against it.
 
-TPU-native design: eigenvalues of the symmetric 3x3 per voxel come from
+Design: eigenvalues of the symmetric 3x3 per voxel come from
 the closed-form trigonometric solution (no LAPACK, no batching loop) —
 pure elementwise jnp that XLA fuses across the grid; the six tensor
 components are rendered seed-direct through the engine's fused spectral

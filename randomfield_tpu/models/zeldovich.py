@@ -14,12 +14,12 @@ output (ops/derived.py: ``psi_k = +i k / k^2 delta_k``, ``x = q + D psi``):
 4. ``catalog_power`` — the painted field's P(k) with the assignment
    window deconvolved and the weighted shot noise subtracted.
 
-TPU-native design: the "catalog" is grid-shaped — positions ``(3, nx,
+Design: the "catalog" is grid-shaped — positions ``(3, nx,
 ny, nz)`` and per-particle weights — so every stage is one jitted
 static-shape device program (a variable-length particle list would
 force host round-trips and recompilation; weights of zero represent
 absent particles for free).  Painting uses XLA scatter-add, which
-serializes colliding updates on TPU — these are validation-scale tools
+serializes colliding updates on device — these are validation-scale tools
 (fine through ~256^3), not the render hot path, and are documented as
 such.  Reference parity: the upstream package ends at Gaussian fields
 (SURVEY.md section 0); this module is framework surface for its

@@ -26,7 +26,7 @@ with the product (kr)_c nudged to Hamilton's low-ringing condition
 (the m = N/2 kernel coefficient made real, so the periodized kernel is
 continuous across the wrap point).
 
-Design notes (TPU framework context): these transforms feed
+Design notes (framework context): these transforms feed
 PREDICTIONS (theory curves, covariance models), not the render hot
 path, so they follow the validate/ convention of host-side float64
 numpy (like `Generator.constraint_matrix`); each call is one O(N log N)

@@ -12,7 +12,7 @@ reference behaviors kept (SURVEY.md sections 2-3):
 * Gaussian mode filtering multiplies by exp(-k^2 s^2 / 2);
 * the table must cover the grid's [k_min, k_max] (validated up front).
 
-TPU-native differences: sigmas live in an immutable device array produced
+Differences from the reference: sigmas live in an immutable device array produced
 by one fused XLA program (no in-place buffer mutation); the variance
 normalization folds the box volume in so the render path is a raw
 ``norm='forward'`` irfftn (see ops/transform.py docstring):
@@ -212,9 +212,9 @@ def tabulate_sigmas(shape, spacing, power, interpolation="log10k",
     the output grid.
 
     ``layout='xyz'`` returns (nx, ny, nzh) — the packed rfft order;
-    ``layout='xzy'`` returns (nx, nzh, ny) — the HBM-lean staged pipeline's
-    internal order, whose minor axis (ny) avoids the ~25% lane-padding tax
-    a 2^k+1 kz minor axis pays on TPU (see engine/staged.py).
+    ``layout='xzy'`` returns (nx, nzh, ny) — the staged pipeline's
+    internal order, which is the canonical Threefry draw order (see
+    engine/staged.py).
     """
     power = validate_power(power)
     require_coverage(power, shape, spacing)

@@ -5,7 +5,7 @@ Reference parity: the mode sampler inside ``randomfield/generate.py``
 packed buffer, then ``transform.symmetrize`` — SURVEY.md section 3.2 hot
 loop #1).
 
-TPU-native design:
+Design:
 
 * ``jax.random`` counter-based Threefry keys replace the sequential
   Mersenne state.  JAX's partitionable threefry makes ``normal(key,
@@ -20,9 +20,8 @@ TPU-native design:
   under spatial sharding XLA lowers the plane flips to small collective
   permutes — no hand-written communication.
 
-A fused Pallas PRNG kernel (sample + interpolate + scale in one VMEM pass,
-per the north star) lives in ``randomfield_tpu.ops.pallas_sampler`` and is
-used by the engine when enabled.
+XLA fuses the draws, the sigma scale and the filter into the programs
+that consume them; no hand-written sampling kernel is needed.
 """
 
 from __future__ import annotations

@@ -6,10 +6,12 @@ The reference has no parallelism at all (SURVEY.md section 2,
 * ``'data'`` — embarrassingly parallel seeds (ensembles, config 4); no
   communication during rendering, psum only for ensemble statistics.
 * ``'space'`` — slab decomposition of the grid (config 5); the
-  distributed irfftn's all-to-all transposes ride ICI within this axis.
+  distributed irfftn's all-to-all transposes run within this axis.
 
-On a real pod slice, keep the 'space' axis innermost (fastest-varying
-device order) so slab transposes use the densest ICI links.
+The mesh follows the algorithm, not a link topology: on GPUs joined all
+to all (NVLink within a host) every device pair has the same link, and
+XLA hands the all-to-alls to NCCL.  Devices fill the mesh in
+``jax.devices()`` order, 'space' fastest.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Pod-scale mock catalogs (halo/HOD/Zel'dovich, FKP survey grids) need
 their particles painted without ever materializing the full grid on one
 device.  The scheme here is the standard domain decomposition of
-particle-mesh codes, TPU-shaped:
+particle-mesh codes, device-shaped:
 
 * the HOST pre-bins particles by block owner (a single digitize —
   O(N) numpy) and hands every shard a padded (3, max_n) block plus a

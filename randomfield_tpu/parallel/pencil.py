@@ -4,7 +4,7 @@ The slab transform (parallel/dfft.py) shards ONE grid axis, so its mesh
 cannot exceed min(nx, ny) devices and its all-to-all moves every byte
 through a single axis's links.  A pencil decomposition shards TWO axes
 over a ('spx', 'spy') sub-mesh, scaling to nx*ny/(block) devices —
-the standard shape for pod-scale grids (AccFFT / P3DFFT pattern,
+the standard shape for the largest grids (AccFFT / P3DFFT pattern,
 PAPERS.md; SURVEY.md section 5 "long-context analog", next step past
 config 5).
 
@@ -23,8 +23,7 @@ multiple of Py for equal all-to-all tiles and sliced back before the
 c2r; the pad shards carry zeros and are never transformed.
 
 Forward (x -> k) is the exact reverse.  Both directions are shard_map
-programs: one all_to_all per stage, each riding a single mesh axis's
-ICI links.
+programs: one all_to_all per stage, each over a single mesh axis.
 
 Requirements: nx % Px == 0, ny % Px == 0, ny % Py == 0.
 """
@@ -37,7 +36,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from randomfield_tpu.ops import transform as _transform
-from randomfield_tpu.parallel.dfft import _fft_axis, _ifft_axis
+from randomfield_tpu.parallel.dfft import _fft_axis, _ifft_axis, _rfft_last
 from randomfield_tpu.parallel.mesh import DATA_AXIS
 
 __all__ = [
@@ -48,7 +47,6 @@ __all__ = [
     "pencil_sigma_sharding",
     "pencil_field_sharding",
     "irfftn_pencil",
-    "irfftn_pencil_reim_xzy",
     "rfftn_pencil",
 ]
 
@@ -59,8 +57,7 @@ SPY_AXIS = "spy"
 def make_pencil_mesh(data=1, spx=1, spy=1, devices=None) -> Mesh:
     """('data', 'spx', 'spy') mesh from the first data*spx*spy devices.
 
-    Keep 'spy' innermost (fastest-varying device order) so the second,
-    kz-facing all-to-all uses the densest links.
+    Devices fill the mesh in ``jax.devices()`` order, 'spy' fastest.
     """
     if devices is None:
         devices = jax.devices()
@@ -132,19 +129,10 @@ def irfftn_pencil(c, shape, mesh: Mesh, batched=False, assume_hermitian=False,
     pencil schedule (AccFFT/P3DFFT).
 
     ``weights``: optional (nz,) per-z-plane multipliers applied to the
-    output (fused into the Pallas c2r tail where that path runs).
-
-    Local transforms: Hermitian inputs of Pallas-capable shapes run the
-    CT kernel family on separate re/im lattices with the all-to-alls
-    riding the transposed intermediate layouts (one transpose per
-    stage instead of the native path's transpose pairs); same
-    RF_MESH_PALLAS switch and ~1e-6 exactness class as the slab path
-    (parallel/dfft.py:_irfftn_slab_pallas).
+    output inside the shard-local program.
 
     Returns the real field sharded per :func:`pencil_field_sharding`.
     """
-    from randomfield_tpu.parallel.dfft import use_pallas_local
-
     nx, ny, nz = shape
     nzh = nz // 2 + 1
     px, py = mesh.shape[SPX_AXIS], mesh.shape[SPY_AXIS]
@@ -155,10 +143,6 @@ def irfftn_pencil(c, shape, mesh: Mesh, batched=False, assume_hermitian=False,
     state0 = input_layout == "state0"
     if input_layout not in ("state0", "state1"):
         raise ValueError(f"unknown input_layout {input_layout!r}")
-    if assume_hermitian and use_pallas_local(shape):
-        return _irfftn_pencil_pallas(
-            c, shape, mesh, batched, state0, weights
-        )
 
     def local(cl, wl):
         if state0:
@@ -217,251 +201,6 @@ def irfftn_pencil(c, shape, mesh: Mesh, batched=False, assume_hermitian=False,
     )(c, w)
 
 
-def _irfftn_pencil_pallas(c, shape, mesh: Mesh, batched, state0, weights):
-    """Pencil inverse on the Pallas CT kernels, re/im-native.
-
-    The native schedule's "transpose to minor + FFT + transpose back"
-    pairs collapse to ONE transpose per stage: each all-to-all rides the
-    transposed intermediate layout instead of the canonical one (the
-    collectives move the same bytes — only the axis numbering changes),
-    and the c2r tail is the fused half-pack + z-weights megakernel:
-
-        state 0  (nx/py, ny/px, nzh)   pad kz, A2A(spy) kz <-> x
-        state 1  (nx, ny/px, kzp/py)   T -> (ny/px, kzp/py, nx), K(x)
-                 A2A(spx) x <-> ky  -> (ny, kzp/py, nx/px)
-        state 2  T -> (kzp/py, nx/px, ny), K(y)
-                 A2A(spy) y <-> kz  -> (kzp, nx/px, ny/py)
-        state 3  T -> (nx/px, ny/py, kzp), slice pad, fused c2r tail
-
-    Kernel exactness and switches as in parallel/dfft.py.
-    """
-    from randomfield_tpu.parallel.dfft import _pallas_interpret
-
-    nx, ny, nz = shape
-    nzh = nz // 2 + 1
-    px, py = mesh.shape[SPX_AXIS], mesh.shape[SPY_AXIS]
-    pad = _kz_pad(nzh, py)
-    off = 1 if batched else 0
-    data = DATA_AXIS if (batched and DATA_AXIS in mesh.shape) else None
-    interp = _pallas_interpret()
-
-    def local(cl, wl):
-        return _pencil_pallas_local(
-            jnp.real(cl), jnp.imag(cl), wl, shape, px, py, pad, off,
-            state0, interp,
-        )
-
-    if state0:
-        in_spec = (P(data, SPY_AXIS, SPX_AXIS, None) if batched
-                   else P(SPY_AXIS, SPX_AXIS, None))
-    else:
-        in_spec = (P(data, None, SPX_AXIS, SPY_AXIS) if batched
-                   else P(None, SPX_AXIS, SPY_AXIS))
-        if pad:
-            widths = [(0, 0)] * c.ndim
-            widths[-1] = (0, pad)
-            c = jnp.pad(c, widths)
-    out_spec = (P(data, SPX_AXIS, SPY_AXIS, None) if batched
-                else P(SPX_AXIS, SPY_AXIS, None))
-    w = (jnp.ones((nz,), jnp.float32) if weights is None
-         else jnp.asarray(weights, jnp.float32))
-    return jax.shard_map(
-        local, mesh=mesh, in_specs=(in_spec, P(None)),
-        out_specs=out_spec, check_vma=False,
-    )(c, w)
-
-
-def irfftn_pencil_reim_xzy(re, im, shape, mesh: Mesh, batched=False,
-                           weights=None):
-    """Hermitian pencil inverse from 'xzy'-layout re/im lattices.
-
-    ``re``/``im``: (.., nx, nzh, ny) with x sharded over 'spy' and y
-    over 'spx' (the pencil Pallas-sampler's output layout).  One local
-    transpose brings each shard to the state-0 xyz block, then the
-    re/im Pallas schedule runs unchanged.  Pallas-capable shapes only.
-    """
-    from randomfield_tpu.parallel.dfft import _pallas_interpret
-
-    nx, ny, nz = shape
-    nzh = nz // 2 + 1
-    px, py = mesh.shape[SPX_AXIS], mesh.shape[SPY_AXIS]
-    _check_pencil(shape, px, py)
-    pad = _kz_pad(nzh, py)
-    off = 1 if batched else 0
-    data = DATA_AXIS if (batched and DATA_AXIS in mesh.shape) else None
-    interp = _pallas_interpret()
-
-    def local(rel, iml, wl):
-        digit = (px == 1 or 128 % px == 0) and (py == 1 or 128 % py == 0)
-        if digit:
-            # native xzy entry: the state-0 pad/a2a ride the (x, kz, y)
-            # layout directly — no entry transpose pass
-            return _pencil_pallas_local(
-                rel, iml, wl, shape, px, py, pad, off, True, interp,
-                xzy=True,
-            )
-        permz = tuple(range(off)) + (off, off + 2, off + 1)
-        rel = jax.lax.optimization_barrier(jnp.transpose(rel, permz))
-        iml = jax.lax.optimization_barrier(jnp.transpose(iml, permz))
-        return _pencil_pallas_local(
-            rel, iml, wl, shape, px, py, pad, off, True, interp
-        )
-
-    in_spec = (P(data, SPY_AXIS, None, SPX_AXIS) if batched
-               else P(SPY_AXIS, None, SPX_AXIS))
-    out_spec = (P(data, SPX_AXIS, SPY_AXIS, None) if batched
-                else P(SPX_AXIS, SPY_AXIS, None))
-    w = (jnp.ones((nz,), jnp.float32) if weights is None
-         else jnp.asarray(weights, jnp.float32))
-    return jax.shard_map(
-        local, mesh=mesh, in_specs=(in_spec, in_spec, P(None)),
-        out_specs=out_spec, check_vma=False,
-    )(re, im, w)
-
-
-def _pencil_pallas_local(re, im, wl, shape, px, py, pad, off, state0,
-                         interp, xzy=False):
-    """Shard-local body of the re/im pencil inverse schedule.
-
-    When px and py divide 128 (every practical pencil mesh) both complex
-    passes emit RAW digit order and the all-to-alls split the LANE digit
-    axis — a contiguous lane-digit range is a natural contiguous block
-    (raw position c*128 + d holds natural index c + A*d), so every shard
-    receives its natural slab still in shard-local digit order, and the
-    state-3 transpose fixes BOTH digit axes at no extra cost.  This
-    removes the two digit-reorder HBM passes that made the mesh path
-    1.4-1.5x the single-chip program (scripts/profile_mesh.py, round 5;
-    same schedule as parallel/dfft.py:_slab_pallas_local).
-    """
-    from randomfield_tpu.ops import pallas_fft as pf
-
-    nx, ny, nz = shape
-    nzh = nz // 2 + 1
-    _B = jax.lax.optimization_barrier
-    lead = re.shape[:off]
-    ax, ay = nx // 128, ny // 128
-    digit = (px == 1 or 128 % px == 0) and (py == 1 or 128 % py == 0)
-    if xzy and not digit:
-        raise ValueError("xzy pencil entry requires the digit-a2a path")
-    perm = tuple(range(off)) + (off + 1, off + 2, off)
-    if state0:
-        # xzy entry: (.., nx/py, nzh, ny/px) — kz sits at off+1, so the
-        # pad and the kz <-> x all-to-all ride that axis directly (no
-        # entry transpose); xyz entry: (.., nx/py, ny/px, nzh)
-        kz_ax = off + 1 if xzy else off + 2
-        if pad:
-            widths = [(0, 0)] * re.ndim
-            widths[kz_ax] = (0, pad)
-            re = jnp.pad(re, widths)
-            im = jnp.pad(im, widths)
-        if py > 1:
-            re = jax.lax.all_to_all(
-                re, SPY_AXIS, split_axis=kz_ax, concat_axis=off,
-                tiled=True,
-            )
-            im = jax.lax.all_to_all(
-                im, SPY_AXIS, split_axis=kz_ax, concat_axis=off,
-                tiled=True,
-            )
-    if not digit:
-        # fallback: natural-order kernels + plain all-to-alls
-        # state 1: (.., nx, nyp, kzpp) -> x on the minor
-        re = _B(jnp.transpose(re, perm))
-        im = _B(jnp.transpose(im, perm))
-        re, im = pf.ifft_minor_pallas_reim(re, im, interpret=interp)
-        if px > 1:
-            re = jax.lax.all_to_all(
-                re, SPX_AXIS, split_axis=off + 2, concat_axis=off, tiled=True
-            )
-            im = jax.lax.all_to_all(
-                im, SPX_AXIS, split_axis=off + 2, concat_axis=off, tiled=True
-            )
-        # state 2: (.., ny, kzpp, nxp) -> y on the minor
-        re = _B(jnp.transpose(re, perm))
-        im = _B(jnp.transpose(im, perm))
-        re, im = pf.ifft_minor_pallas_reim(re, im, interpret=interp)
-        if py > 1:
-            re = jax.lax.all_to_all(
-                re, SPY_AXIS, split_axis=off + 2, concat_axis=off, tiled=True
-            )
-            im = jax.lax.all_to_all(
-                im, SPY_AXIS, split_axis=off + 2, concat_axis=off, tiled=True
-            )
-        # state 3: (.., kzp, nxp, nyp) -> kz minor, drop pad, fused tail
-        re = _B(jnp.transpose(re, perm))[..., :nzh]
-        im = _B(jnp.transpose(im, perm))[..., :nzh]
-        nxp_l, nyp_l = re.shape[off], re.shape[off + 1]
-        f = pf.irfft_tail_pallas(
-            re.reshape(-1, nyp_l, nzh), im.reshape(-1, nyp_l, nzh),
-            nz, wl, interpret=interp,
-        )
-        return f.reshape(*lead, nxp_l, nyp_l, nz)
-
-    Lx, Ly = 128 // px, 128 // py
-    # state 1 -> x on the minor, RAW digit order:
-    #   xyz: (.., nx, nyp, kzpp) -> (.., nyp, kzpp, nx)
-    #   xzy: (.., nx, kzpp, nyp) -> (.., kzpp, nyp, nx)
-    re = _B(jnp.transpose(re, perm))
-    im = _B(jnp.transpose(im, perm))
-    kzpp = re.shape[off] if xzy else re.shape[off + 1]
-    re, im = pf.ifft_minor_pallas_reim(re, im, reorder=False, interpret=interp)
-    if px > 1:
-        # the a2a concatenates along the KY axis — off for xyz
-        # (.., nyp, kzpp, ..), off + 1 for xzy (.., kzpp, nyp, ..)
-        ky_ax = off + 1 if xzy else off
-
-        def a2ax(g):
-            # split the lane digit: block s of d is natural x slab s
-            g = g.reshape(*g.shape[:-1], ax, 128)
-            return jax.lax.all_to_all(
-                g, SPX_AXIS, split_axis=off + 3, concat_axis=ky_ax,
-                tiled=True,
-            )
-
-        re, im = a2ax(re), a2ax(im)
-        # xyz: (.., ny, kzpp, ax, Lx) / xzy: (.., kzpp, ny, ax, Lx)
-        # -> (.., kzpp, nxp^G', ny)
-        perm2 = (tuple(range(off)) + (off, off + 2, off + 3, off + 1)
-                 if xzy
-                 else tuple(range(off)) + (off + 1, off + 2, off + 3, off))
-        re = _B(jnp.transpose(re, perm2).reshape(*lead, kzpp, ax * Lx, ny))
-        im = _B(jnp.transpose(im, perm2).reshape(*lead, kzpp, ax * Lx, ny))
-    else:
-        perm2s = (tuple(range(off)) + (off, off + 2, off + 1) if xzy
-                  else perm)
-        re = _B(jnp.transpose(re, perm2s))  # (.., kzpp, nx^G, ny)
-        im = _B(jnp.transpose(im, perm2s))
-    # state 2: y on the minor, RAW digit order
-    re, im = pf.ifft_minor_pallas_reim(re, im, reorder=False, interpret=interp)
-    if py > 1:
-        def a2ay(g):
-            g = g.reshape(*g.shape[:-1], ay, 128)
-            return jax.lax.all_to_all(
-                g, SPY_AXIS, split_axis=off + 3, concat_axis=off, tiled=True
-            )
-
-        re, im = a2ay(re), a2ay(im)  # (.., kzp, nxp^G', ay, Ly)
-    kzp = re.shape[off]
-
-    def close(g):
-        # both digit fixes (x: (c, d') -> (d', c); y likewise) + the
-        # kz-minor rotation in ONE transpose
-        g6 = g.reshape(*lead, kzp, ax, Lx, ay, Ly)
-        permc = tuple(range(off)) + (off + 2, off + 1, off + 4, off + 3, off)
-        return _B(
-            jnp.transpose(g6, permc).reshape(*lead, ax * Lx, ay * Ly, kzp)
-        )
-
-    re = close(re)[..., :nzh]
-    im = close(im)[..., :nzh]
-    nxp_l, nyp_l = re.shape[off], re.shape[off + 1]
-    f = pf.irfft_tail_pallas(
-        re.reshape(-1, nyp_l, nzh), im.reshape(-1, nyp_l, nzh),
-        nz, wl, interpret=interp,
-    )
-    return f.reshape(*lead, nxp_l, nyp_l, nz)
-
-
 def rfftn_pencil(x, shape, mesh: Mesh, batched=False, keep_pad=False):
     """Distributed forward r2c FFT over a pencil mesh (norm='backward').
 
@@ -473,10 +212,6 @@ def rfftn_pencil(x, shape, mesh: Mesh, batched=False, keep_pad=False):
     spectrum (the distributed P(k) estimator) avoid an uneven re-shard
     followed by a re-pad.
     """
-    from randomfield_tpu.parallel.dfft import (
-        _pallas_interpret, use_pallas_local,
-    )
-
     nx, ny, nz = shape
     nzh = nz // 2 + 1
     px, py = mesh.shape[SPX_AXIS], mesh.shape[SPY_AXIS]
@@ -484,14 +219,10 @@ def rfftn_pencil(x, shape, mesh: Mesh, batched=False, keep_pad=False):
     pad = _kz_pad(nzh, py)
     off = 1 if batched else 0
     data = DATA_AXIS if (batched and DATA_AXIS in mesh.shape) else None
-    pallas = use_pallas_local(shape)
-    interp = _pallas_interpret() if pallas else False
-    _Bar = jax.lax.optimization_barrier
 
     def local(xl):
         # state 3: (nx/px, ny/py, nz) — z fully local: r2c, pad kz
-        cl = _fft_axis(xl, xl.ndim - 1)
-        cl = cl[..., : nzh]
+        cl = _rfft_last(xl)
         if pad:
             widths = [(0, 0)] * cl.ndim
             widths[-1] = (0, pad)
@@ -509,102 +240,6 @@ def rfftn_pencil(x, shape, mesh: Mesh, batched=False, keep_pad=False):
             )
         # state 1: (nx, ny/px, kzp/py) — x fully local
         return _fft_axis(cl, cl.ndim - 3)
-
-    def local_pallas(xl):
-        # same schedule on re/im lattices with the forward CT kernels
-        # (conjugation identity, ops/pallas_fft.py): one transpose per
-        # complex pass instead of the native transpose pairs.  Both
-        # passes emit RAW digit order when px divides 128 — the
-        # SPX all-to-all splits ky's LANE digit (a contiguous
-        # lane-digit range IS a natural ky slab) and the closing
-        # transpose fixes kx + local-ky digits at once (the round-5
-        # digit-split schedule, see parallel/dfft.py).
-        from randomfield_tpu.ops import pallas_fft as pf
-
-        ax, ay = nx // 128, ny // 128
-        digit = px == 1 or 128 % px == 0
-        # r2c head via the half-length pack — one nz/2-point kernel
-        # pass instead of the native full-nz complex FFT + slice
-        re, im = pf.rfft_minor_half_reim(xl, interpret=interp)
-        if pad:
-            widths = [(0, 0)] * re.ndim
-            widths[-1] = (0, pad)
-            re = jnp.pad(re, widths)
-            im = jnp.pad(im, widths)
-        if py > 1:
-            re = jax.lax.all_to_all(
-                re, SPY_AXIS, split_axis=off + 2, concat_axis=off + 1,
-                tiled=True,
-            )
-            im = jax.lax.all_to_all(
-                im, SPY_AXIS, split_axis=off + 2, concat_axis=off + 1,
-                tiled=True,
-            )
-        # state 2: (.., nxp, ny, kzpp) -> y minor
-        permy = tuple(range(off)) + (off, off + 2, off + 1)
-        tre = _Bar(jnp.transpose(re, permy))  # (.., nxp, kzpp, ny)
-        tim = _Bar(jnp.transpose(im, permy))
-        gre, gim = pf.fft_minor_pallas_reim(
-            tre, tim, interpret=interp, reorder=not digit
-        )
-        if digit:
-            L = 128 // px
-            if px > 1:
-                def a2a(g):
-                    g = g.reshape(*g.shape[:-1], ay, 128)
-                    return jax.lax.all_to_all(
-                        g, SPX_AXIS, split_axis=off + 3, concat_axis=off,
-                        tiled=True,
-                    )
-
-                gre, gim = a2a(gre), a2a(gim)
-                # (.., nx, kzpp, ay, L) -> (.., kzpp, nyp^G', nx)
-                permx = tuple(range(off)) + (off + 1, off + 2, off + 3, off)
-                kzpp = gre.shape[off + 1]
-                tre = _Bar(jnp.transpose(gre, permx).reshape(
-                    *gre.shape[:off], kzpp, ay * L, nx))
-                tim = _Bar(jnp.transpose(gim, permx).reshape(
-                    *gim.shape[:off], kzpp, ay * L, nx))
-            else:
-                permx = tuple(range(off)) + (off + 1, off + 2, off)
-                tre = _Bar(jnp.transpose(gre, permx))
-                tim = _Bar(jnp.transpose(gim, permx))
-            gre, gim = pf.fft_minor_pallas_reim(
-                tre, tim, interpret=interp, reorder=False
-            )
-
-            def close(g):
-                lead = g.shape[:off]
-                kzpp = g.shape[off]
-                g6 = g.reshape(*lead, kzpp, ay, L, ax, 128)
-                permc = tuple(range(off)) + (
-                    off + 4, off + 3, off + 2, off + 1, off
-                )
-                return _Bar(jnp.transpose(g6, permc).reshape(
-                    *lead, nx, ay * L, kzpp))
-
-            return jax.lax.complex(close(gre), close(gim))
-        if px > 1:
-            gre = jax.lax.all_to_all(
-                gre, SPX_AXIS, split_axis=off + 2, concat_axis=off,
-                tiled=True,
-            )
-            gim = jax.lax.all_to_all(
-                gim, SPX_AXIS, split_axis=off + 2, concat_axis=off,
-                tiled=True,
-            )
-        # state 1: (.., nx, kzpp, nyp) -> x minor
-        permx = tuple(range(off)) + (off + 1, off + 2, off)
-        tre = _Bar(jnp.transpose(gre, permx))  # (.., kzpp, nyp, nx)
-        tim = _Bar(jnp.transpose(gim, permx))
-        gre, gim = pf.fft_minor_pallas_reim(tre, tim, interpret=interp)
-        permc = tuple(range(off)) + (off + 2, off + 1, off)
-        cre = _Bar(jnp.transpose(gre, permc))  # (.., nx, nyp, kzpp)
-        cim = _Bar(jnp.transpose(gim, permc))
-        return jax.lax.complex(cre, cim)
-
-    if pallas:
-        local = local_pallas
 
     in_spec = (P(data, SPX_AXIS, SPY_AXIS, None) if batched
                else P(SPX_AXIS, SPY_AXIS, None))

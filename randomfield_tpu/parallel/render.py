@@ -10,14 +10,12 @@ Composition strategy (SURVEY.md section 7, milestone C/D):
   bookkeeping, and the Hermitian fixup's cross-shard conjugate pairs
   (hard part #2) lower to two small collective permutes on the
   kz = 0 / Nyquist planes, handled by XLA.
-* sigma(k) is evaluated INLINE from the (tiny, replicated) power table
-  (ops/power.py:sigma_inline) instead of reading a stored grid: each
-  device materializes only its shard of the sigma expression, so the
-  sigma footprint is zero resident HBM at any mesh shape — this removed
-  the round-2 pencil weak item where sigma replicated across 'spy'
-  (~4.3 GB/device at 2048^3).  Inline evaluation is the same float32
-  expression as ``tabulate_sigmas``, so sharded renders still equal the
-  single-device render.
+* sigma(k) comes from the scene's sharded grid, built once from the
+  same float32 expression as ``tabulate_sigmas``
+  (ops/power.py:sigma_inline), so sharded renders still equal the
+  single-device render.  Each device holds only its own shard.
+  Reading the grid beats evaluating it inline in every program: the
+  table gathers doubled a four-GPU 1024^3 render (PERF.md).
 * Only the FFT goes through ``shard_map`` (parallel/dfft.py,
   parallel/pencil.py) — the one place where XLA's data-flow sharding
   would otherwise insert a full gather.
@@ -82,98 +80,15 @@ def _mesh_specs(mesh, batched):
     return NamedSharding(mesh, draws), NamedSharding(mesh, spec), out
 
 
-def use_scale_kernel() -> bool:
-    """True when mesh Threefry programs scale via the per-shard Pallas
-    sigma-interp kernel instead of reading a materialized sigma grid.
-
-    Mirrors dfft.use_pallas_local's platform/env gating (the kernel is
-    elementwise, so it has no shape rules): compiled on TPU, interpreter
-    on CPU only when RF_MESH_PALLAS=1 (the parity-test configuration).
-    RF_MESH_SCALE_KERNEL=0 forces the materialized-grid path.
-    """
-    import os
-
-    if os.environ.get("RF_MESH_SCALE_KERNEL", "") == "0":
-        return False
-    if os.environ.get("RF_MESH_PALLAS", "") == "1":
-        return True
-    return not dfft._pallas_interpret()
-
-
-def _scale_reim_sharded(re, im, stable, shape, spacing, smoothing_length,
-                        mesh, batched):
-    """sigma * filter scale of sharded 'xyz' re/im lattices, per shard.
-
-    Runs ops/pallas_sampler.py:scale_shard_pallas_reim inside a
-    shard_map with global (x, y) offsets from axis_index — zero sigma
-    bytes resident on any device, same table-sigma flavor as the
-    single-chip tableless staged path (engine/staged.py:
-    render_v3_threefry), replacing the round-4 materialized sharded
-    sigma grid (VERDICT r4 item 3; the pure-jnp inline interpolation
-    measured ~7 s/render at 512^3 under GSPMD).
-    """
-    from randomfield_tpu.ops import pallas_sampler as _ps
-    from randomfield_tpu.parallel.dfft import _pallas_interpret
-
-    lk0, inv_dlk, stab = stable
-    nx, ny, nz = shape
-    interp = _pallas_interpret()
-    pencil = _pencil.is_pencil_mesh(mesh)
-    data = DATA_AXIS if (batched and DATA_AXIS in mesh.shape) else None
-    if pencil:
-        nxl = nx // mesh.shape[_pencil.SPY_AXIS]
-        nyl = ny // mesh.shape[_pencil.SPX_AXIS]
-        spec = (P(data, _pencil.SPY_AXIS, _pencil.SPX_AXIS, None) if batched
-                else P(_pencil.SPY_AXIS, _pencil.SPX_AXIS, None))
-    else:
-        nxl = nx
-        nyl = ny // mesh.shape[SPACE_AXIS]
-        spec = (P(data, None, SPACE_AXIS, None) if batched
-                else P(None, SPACE_AXIS, None))
-
-    def local(rel, iml, lk0a, inva, stabl, sm):
-        if pencil:
-            xo = jax.lax.axis_index(_pencil.SPY_AXIS) * nxl
-            yo = jax.lax.axis_index(_pencil.SPX_AXIS) * nyl
-        else:
-            xo = jnp.int32(0)
-            yo = jax.lax.axis_index(SPACE_AXIS) * nyl
-
-        def one(r, i):
-            return _ps.scale_shard_pallas_reim(
-                r, i, sm[0], lk0a[0], inva[0], stabl, xo, yo,
-                shape, spacing, interpret=interp,
-            )
-
-        if batched:
-            return jax.lax.map(lambda p: one(p[0], p[1]), (rel, iml))
-        return one(rel, iml)
-
-    return jax.shard_map(
-        local, mesh=mesh,
-        in_specs=(spec, spec, P(), P(), P(), P()),
-        out_specs=(spec, spec), check_vma=False,
-    )(
-        re, im,
-        jnp.asarray(lk0, jnp.float32).reshape(1),
-        jnp.asarray(inv_dlk, jnp.float32).reshape(1),
-        stab,
-        jnp.asarray(smoothing_length, jnp.float32).reshape(1),
-    )
-
-
 def _sampled_spectrum(key, lk_tab, val_tab, smoothing_length, shape, spacing,
                       mesh, batched, log_values, dtype, fixed=False,
-                      flip=False, sigmas=None, nested=False, stable=None):
+                      flip=False, sigmas=None, nested=False):
     """Sample + symmetrize + sigma scale + filter, sharded.
 
-    ``sigmas``: optional MATERIALIZED (sharded) sigma grid.  On this
-    runtime the inline table interpolation's gathers are pathologically
-    slow (~7 s at 512^3 — measured round 4), so per-render programs pass
-    the scene's cached sharded grid (Generator._mesh_sigmas) and sigma
-    becomes a pure read; ``None`` falls back to inline evaluation
-    (identical values — the grid is materialized from the same
-    expression).
+    ``sigmas``: None evaluates sigma inline per shard from the table
+    (ops/power.py:sigma_inline); an array is a MATERIALIZED sharded
+    sigma grid to read instead (identical values — the grid is built
+    from the same expression).  Generator._mesh_sigmas picks which.
 
     ``fixed=True`` pins every mode's magnitude to sigma(k) exactly
     (Angulo-Pontzen variance suppression, ops/sample.py:
@@ -209,22 +124,6 @@ def _sampled_spectrum(key, lk_tab, val_tab, smoothing_length, shape, spacing,
         re, im = draw1(key)
     re = jax.lax.with_sharding_constraint(re, reim_sharding)
     im = jax.lax.with_sharding_constraint(im, reim_sharding)
-    if stable is not None and not fixed and not nested:
-        # tableless flavor: unit draws scale through the per-shard
-        # Pallas sigma-interp kernel (same order as the single-chip
-        # render_v3_threefry: 1/sqrt2 -> Hermitian fixup -> kernel);
-        # no sigma grid exists on any device
-        inv = jnp.asarray(_INV_SQRT2, dtype)
-        re, im = _transform.symmetrize_with_shape_reim(
-            re * inv, im * inv, nz, scale_self_conjugate=True
-        )
-        re = jax.lax.with_sharding_constraint(re, spec_sharding)
-        im = jax.lax.with_sharding_constraint(im, spec_sharding)
-        re, im = _scale_reim_sharded(
-            re, im, stable, shape, spacing, smoothing_length, mesh, batched
-        )
-        c = jax.lax.complex(re, im)
-        return jax.lax.with_sharding_constraint(c, spec_sharding)
     z = jax.lax.complex(re, im) * jnp.asarray(_INV_SQRT2, dtype)
     z = _transform.symmetrize_with_shape(z, nz=nz, scale_self_conjugate=True)
     if fixed:
@@ -247,78 +146,9 @@ def _sampled_spectrum(key, lk_tab, val_tab, smoothing_length, shape, spacing,
     return jax.lax.with_sharding_constraint(c, spec_sharding)
 
 
-def _sampled_spectrum_reim(key, lk_tab, val_tab, smoothing_length, shape,
-                           spacing, mesh, batched, log_values, dtype,
-                           sigmas=None, stable=None):
-    """:func:`_sampled_spectrum` on separate re/im lattices (slab meshes).
-
-    Identical draws (canonical chunked stream) and identical per-mode
-    scaling — symmetrization happens on the raw draws and every scaling
-    (1/sqrt2, sigma, filter) is a function of |k| alone, so it commutes
-    with the Hermitian projection bit-for-bit up to multiply ordering.
-    The complex pack is never formed: combined with
-    dfft.irfftn_slab_reim this is what fits a 1024^3 render on a single
-    16 GB device mesh (the complex path peaks ~8.6 GB higher).
-    """
-    from randomfield_tpu.ops import sample as _sample
-
-    nx, ny, nz = shape
-    draws_sharding, spec_sharding, _ = _mesh_specs(mesh, batched)
-    reim_sharding = NamedSharding(
-        mesh, P(*(draws_sharding.spec[:1] + draws_sharding.spec[2:]))
-        if batched else P(*draws_sharding.spec[1:])
-    )
-    if batched:
-        re, im = jax.vmap(
-            lambda k: _sample.unit_draws_reim(k, shape, dtype)
-        )(key)
-    else:
-        re, im = _sample.unit_draws_reim(key, shape, dtype)
-    re = jax.lax.with_sharding_constraint(re, reim_sharding)
-    im = jax.lax.with_sharding_constraint(im, reim_sharding)
-    if stable is not None:
-        inv = jnp.asarray(_INV_SQRT2, dtype)
-        re, im = _transform.symmetrize_with_shape_reim(
-            re * inv, im * inv, nz, scale_self_conjugate=True
-        )
-        re = jax.lax.with_sharding_constraint(re, spec_sharding)
-        im = jax.lax.with_sharding_constraint(im, spec_sharding)
-        return _scale_reim_sharded(
-            re, im, stable, shape, spacing, smoothing_length, mesh, batched
-        )
-    re, im = _transform.symmetrize_with_shape_reim(
-        re, im, nz, scale_self_conjugate=True
-    )
-    if sigmas is None:
-        sig = _power.sigma_inline(
-            shape, spacing, lk_tab, val_tab, log_values, dtype, layout="xyz"
-        )
-    else:
-        sig = sigmas
-    sig = jax.lax.with_sharding_constraint(
-        sig, spec_sharding if not batched
-        else NamedSharding(mesh, P(*spec_sharding.spec[1:]))
-    )
-    amp = _power.filter_modes(
-        sig * jnp.asarray(_INV_SQRT2, dtype), shape, spacing, smoothing_length
-    )
-    re = jax.lax.with_sharding_constraint(re * amp, spec_sharding)
-    im = jax.lax.with_sharding_constraint(im * amp, spec_sharding)
-    return re, im
-
-
-def _use_reim_mesh(mesh, shape) -> bool:
-    """Slab meshes with Pallas-capable local shapes render re/im-native."""
-    return (not _pencil.is_pencil_mesh(mesh)) and dfft.use_pallas_local(shape)
-
-
 def _inverse(c, shape, mesh, batched, weights=None):
-    """Distributed Hermitian inverse; optional fused (nz,) z-weights.
-
-    On the slab Pallas path the weights ride the c2r megakernel's output
-    pass (no separate field-sized multiply); other paths multiply after
-    the transform — callers pass weights here instead of scaling the
-    result themselves so every path pays the minimum."""
+    """Distributed Hermitian inverse; optional (nz,) z-weights applied
+    inside the shard-local transform program."""
     if _pencil.is_pencil_mesh(mesh):
         out = _pencil.irfftn_pencil(
             c, shape, mesh, batched=batched, assume_hermitian=True,
@@ -329,36 +159,17 @@ def _inverse(c, shape, mesh, batched, weights=None):
                             assume_hermitian=True, weights=weights)
 
 
+@functools.lru_cache(maxsize=32)
 def make_sharded_render(mesh: Mesh, shape, spacing, from_seed=False,
                         log_values=False, dtype_name="float32",
-                        fixed=False, flip=False, nested=False,
-                        scale_kernel=False):
-    # thin uncached shim: the re/im-vs-complex choice depends on
-    # RF_MESH_PALLAS/platform at call time, so it must be part of the
-    # compile cache key (env flips between tests would otherwise return
-    # stale programs)
-    return _make_sharded_render(
-        mesh, shape, spacing, from_seed, log_values, dtype_name, fixed,
-        flip, _use_reim_mesh(mesh, shape) and not nested, nested,
-        scale_kernel and not fixed and not nested,
-    )
-
-
-@functools.lru_cache(maxsize=32)
-def _make_sharded_render(mesh: Mesh, shape, spacing, from_seed=False,
-                         log_values=False, dtype_name="float32",
-                         fixed=False, flip=False, reim=False,
-                         nested=False, scale_kernel=False):
+                        fixed=False, flip=False, nested=False):
     """Compile a single-realization spatially-sharded render for a mesh.
 
     The returned fn takes ``(key, lk_tab, val_tab, sig, weights,
     smoothing_length)`` where ``lk_tab``/``val_tab`` are the power
-    table's interpolation arrays (ops/power.py:_table_arrays).  ``sig``
-    is the scene's materialized sharded sigma grid — or, with
-    ``scale_kernel=True``, the (lk0, inv_dlk, stab) SigmaTable pieces
-    for the per-shard Pallas scale kernel (zero sigma bytes resident;
-    the table-sigma flavor shared with the single-chip tableless
-    staged path).
+    table's interpolation arrays (ops/power.py:_table_arrays) and
+    ``sig`` is None (sigma inline per shard) or the scene's
+    materialized sharded sigma grid (see :func:`_sampled_spectrum`).
 
     ``from_seed=True`` makes the program take a uint32 seed scalar and
     derive the PRNG key *inside* jit — required on multi-host meshes,
@@ -373,42 +184,20 @@ def _make_sharded_render(mesh: Mesh, shape, spacing, from_seed=False,
     def fn(key, lk_tab, val_tab, sig, weights, smoothing_length):
         if from_seed:
             key = jax.random.key(key)
-        sigmas, stable = (None, sig) if scale_kernel else (sig, None)
-        if not fixed and reim:
-            re, im = _sampled_spectrum_reim(
-                key, lk_tab, val_tab, smoothing_length, shape, spacing,
-                mesh, False, log_values, dtype, sigmas=sigmas,
-                stable=stable,
-            )
-            return dfft.irfftn_slab_reim(
-                re, im, shape, mesh, batched=False, weights=weights
-            )
         c = _sampled_spectrum(
             key, lk_tab, val_tab, smoothing_length, shape, spacing, mesh,
-            False, log_values, dtype, fixed, flip, sigmas=sigmas,
-            nested=nested, stable=stable,
+            False, log_values, dtype, fixed, flip, sigmas=sig,
+            nested=nested,
         )
         return _inverse(c, shape, mesh, False, weights=weights)
 
     return jax.jit(fn, out_shardings=out)
 
 
+@functools.lru_cache(maxsize=32)
 def make_sharded_render_batch(mesh: Mesh, shape, spacing, from_seed=False,
                               log_values=False, dtype_name="float32",
-                              fixed=False, flip=False, nested=False,
-                              scale_kernel=False):
-    return _make_sharded_render_batch(
-        mesh, shape, spacing, from_seed, log_values, dtype_name, fixed,
-        flip, _use_reim_mesh(mesh, shape) and not nested, nested,
-        scale_kernel and not fixed and not nested,
-    )
-
-
-@functools.lru_cache(maxsize=32)
-def _make_sharded_render_batch(mesh: Mesh, shape, spacing, from_seed=False,
-                               log_values=False, dtype_name="float32",
-                               fixed=False, flip=False, reim=False,
-                               nested=False, scale_kernel=False):
+                              fixed=False, flip=False, nested=False):
     """Compile a seed-batched render: batch over 'data', spatial sharding."""
     dtype = jnp.dtype(dtype_name)
     _, _, out = _mesh_specs(mesh, batched=True)
@@ -416,206 +205,12 @@ def _make_sharded_render_batch(mesh: Mesh, shape, spacing, from_seed=False,
     def fn(keys, lk_tab, val_tab, sig, weights, smoothing_length):
         if from_seed:
             keys = jax.vmap(jax.random.key)(keys)
-        sigmas, stable = (None, sig) if scale_kernel else (sig, None)
-        if not fixed and reim:
-            re, im = _sampled_spectrum_reim(
-                keys, lk_tab, val_tab, smoothing_length, shape, spacing,
-                mesh, True, log_values, dtype, sigmas=sigmas,
-                stable=stable,
-            )
-            return dfft.irfftn_slab_reim(
-                re, im, shape, mesh, batched=True, weights=weights
-            )
         c = _sampled_spectrum(
             keys, lk_tab, val_tab, smoothing_length, shape, spacing, mesh,
-            True, log_values, dtype, fixed, flip, sigmas=sigmas,
-            nested=nested, stable=stable,
+            True, log_values, dtype, fixed, flip, sigmas=sig,
+            nested=nested,
         )
         return _inverse(c, shape, mesh, True, weights=weights)
-
-    return jax.jit(fn, out_shardings=out)
-
-
-def can_mesh_pallas(mesh, shape) -> bool:
-    """True when the hardware-PRNG sampler can run on this mesh/shape.
-
-    Slab meshes: the y axis must split into whole 128-lane tiles per
-    space shard.  Pencil meshes: y splits into 128-lane tiles per 'spx'
-    shard and x rows divide over 'spy'.  Both need Pallas-transformable
-    shapes; either way the sampled stream is the GLOBAL single-device
-    xzy stream (global tile ids)."""
-    nx, ny, nz = shape
-    if not dfft.can_pallas_slab(shape):
-        return False
-    if _pencil.is_pencil_mesh(mesh):
-        px = mesh.shape[_pencil.SPX_AXIS]
-        py = mesh.shape[_pencil.SPY_AXIS]
-        return ny % (128 * px) == 0 and nx % py == 0
-    n_space = mesh.shape[SPACE_AXIS]
-    return ny % (128 * n_space) == 0
-
-
-@functools.lru_cache(maxsize=32)
-def make_sharded_render_pallas(mesh: Mesh, shape, spacing,
-                               dtype_name="float32"):
-    """Mesh render on the hardware-PRNG Pallas sampler (slab meshes).
-
-    Per space shard the sampling kernel emits its y-slice of the GLOBAL
-    'xzy' stream (ops/pallas_sampler.py:sample_shard_pallas_reim —
-    global tile ids and k indices), the Hermitian fixup runs at the jit
-    level (cross-shard conjugate flips lower to collective permutes),
-    and the transform is the xzy-input Pallas slab schedule.  The
-    realization is bit-identical to the single-device
-    ``sampler='pallas'`` render of the same seed on ANY shard count —
-    one hardware-stream family per (seed, shape), mesh or not.
-
-    The returned fn takes ``(seed_i32, smoothing, lk0, inv_dlk, stab,
-    weights)`` — SigmaTable pieces as runtime args (layout 'xzy').
-    """
-    from randomfield_tpu.ops import pallas_sampler as _ps
-    from randomfield_tpu.parallel.dfft import _pallas_interpret
-
-    nx, ny, nz = shape
-    nzh = nz // 2 + 1
-    if not can_mesh_pallas(mesh, shape):
-        raise ValueError(
-            f"mesh-pallas sampling needs a Pallas-capable shape with y "
-            f"in whole 128-lane tiles per shard (can_mesh_pallas); got "
-            f"{shape} on {dict(mesh.shape)}"
-        )
-    is_pencil = _pencil.is_pencil_mesh(mesh)
-    interp = _pallas_interpret()
-    _, _, out = _mesh_specs(mesh, batched=False)
-    if is_pencil:
-        px = mesh.shape[_pencil.SPX_AXIS]
-        py = mesh.shape[_pencil.SPY_AXIS]
-        nyl, rows = ny // px, nx // py
-        spec_sharding = NamedSharding(
-            mesh, P(_pencil.SPY_AXIS, None, _pencil.SPX_AXIS)
-        )
-    else:
-        n_space = mesh.shape[SPACE_AXIS]
-        nyl, rows = ny // n_space, nx
-        spec_sharding = NamedSharding(mesh, P(None, None, SPACE_AXIS))
-
-    def sample_local(seed, sm, lk0, inv_dlk, stab):
-        if is_pencil:
-            toff = jax.lax.axis_index(_pencil.SPX_AXIS) * (nyl // 128)
-            roff = jax.lax.axis_index(_pencil.SPY_AXIS) * rows
-        else:
-            toff = jax.lax.axis_index(SPACE_AXIS) * (nyl // 128)
-            roff = jnp.int32(0)
-        return _ps.sample_shard_pallas_reim(
-            seed[0], sm[0], lk0[0], inv_dlk[0], stab, toff,
-            shape, spacing, nyl, interpret=interp,
-            row_offset=roff, shard_rows=rows,
-        )
-
-    def fn(seed, smoothing_length, lk0, inv_dlk, stab, weights):
-        re, im = jax.shard_map(
-            sample_local, mesh=mesh,
-            in_specs=(P(), P(), P(), P(), P()),
-            out_specs=(spec_sharding.spec, spec_sharding.spec),
-            check_vma=False,
-        )(
-            jnp.asarray(seed, jnp.int32).reshape(1),
-            jnp.asarray(smoothing_length, jnp.float32).reshape(1),
-            jnp.asarray(lk0, jnp.float32).reshape(1),
-            jnp.asarray(inv_dlk, jnp.float32).reshape(1),
-            stab,
-        )
-        re = jax.lax.with_sharding_constraint(re, spec_sharding)
-        im = jax.lax.with_sharding_constraint(im, spec_sharding)
-        re, im = _transform.symmetrize_xzy_reim(re, im, nz)
-        if is_pencil:
-            return _pencil.irfftn_pencil_reim_xzy(
-                re, im, shape, mesh, batched=False, weights=weights
-            )
-        return dfft.irfftn_slab_reim_xzy(
-            re, im, shape, mesh, batched=False, weights=weights
-        )
-
-    return jax.jit(fn, out_shardings=out)
-
-
-@functools.lru_cache(maxsize=32)
-def make_sharded_render_pallas_batch(mesh: Mesh, shape, spacing,
-                                     dtype_name="float32"):
-    """Seed-batched mesh render on the hardware-PRNG sampler.
-
-    Seeds shard over 'data' (each data row lax.maps its local seeds
-    through the same shard sampler as the single-seed program), space
-    shards sample/transform exactly as
-    :func:`make_sharded_render_pallas` — per-seed fields are
-    bit-identical to single renders.  The returned fn takes
-    ``(seeds_i32, smoothing, lk0, inv_dlk, stab, weights)``.
-    """
-    from randomfield_tpu.ops import pallas_sampler as _ps
-    from randomfield_tpu.parallel.dfft import _pallas_interpret
-
-    nx, ny, nz = shape
-    if not can_mesh_pallas(mesh, shape):
-        raise ValueError(
-            f"mesh-pallas sampling needs a Pallas-capable shape with y "
-            f"in whole 128-lane tiles per shard (can_mesh_pallas); got "
-            f"{shape} on {dict(mesh.shape)}"
-        )
-    is_pencil = _pencil.is_pencil_mesh(mesh)
-    interp = _pallas_interpret()
-    data = DATA_AXIS if DATA_AXIS in mesh.shape else None
-    _, _, out = _mesh_specs(mesh, batched=True)
-    if is_pencil:
-        px = mesh.shape[_pencil.SPX_AXIS]
-        py = mesh.shape[_pencil.SPY_AXIS]
-        nyl, rows = ny // px, nx // py
-        spec_sharding = NamedSharding(
-            mesh, P(data, _pencil.SPY_AXIS, None, _pencil.SPX_AXIS)
-        )
-    else:
-        n_space = mesh.shape[SPACE_AXIS]
-        nyl, rows = ny // n_space, nx
-        spec_sharding = NamedSharding(mesh, P(data, None, None, SPACE_AXIS))
-
-    def sample_local(seeds, sm, lk0, inv_dlk, stab):
-        if is_pencil:
-            toff = jax.lax.axis_index(_pencil.SPX_AXIS) * (nyl // 128)
-            roff = jax.lax.axis_index(_pencil.SPY_AXIS) * rows
-        else:
-            toff = jax.lax.axis_index(SPACE_AXIS) * (nyl // 128)
-            roff = jnp.int32(0)
-
-        def one(s):
-            return _ps.sample_shard_pallas_reim(
-                s, sm[0], lk0[0], inv_dlk[0], stab, toff,
-                shape, spacing, nyl, interpret=interp,
-                row_offset=roff, shard_rows=rows,
-            )
-
-        return jax.lax.map(one, seeds)
-
-    def fn(seeds, smoothing_length, lk0, inv_dlk, stab, weights):
-        re, im = jax.shard_map(
-            sample_local, mesh=mesh,
-            in_specs=(P(data), P(), P(), P(), P()),
-            out_specs=(spec_sharding.spec, spec_sharding.spec),
-            check_vma=False,
-        )(
-            jnp.asarray(seeds, jnp.int32),
-            jnp.asarray(smoothing_length, jnp.float32).reshape(1),
-            jnp.asarray(lk0, jnp.float32).reshape(1),
-            jnp.asarray(inv_dlk, jnp.float32).reshape(1),
-            stab,
-        )
-        re = jax.lax.with_sharding_constraint(re, spec_sharding)
-        im = jax.lax.with_sharding_constraint(im, spec_sharding)
-        re, im = _transform.symmetrize_xzy_reim(re, im, nz)
-        if is_pencil:
-            return _pencil.irfftn_pencil_reim_xzy(
-                re, im, shape, mesh, batched=True, weights=weights
-            )
-        return dfft.irfftn_slab_reim_xzy(
-            re, im, shape, mesh, batched=True, weights=weights
-        )
 
     return jax.jit(fn, out_shardings=out)
 
@@ -623,7 +218,7 @@ def make_sharded_render_pallas_batch(mesh: Mesh, shape, spacing,
 @functools.lru_cache(maxsize=64)
 def make_sharded_derived(mesh: Mesh, shape, spacing, kind, component,
                          from_seed=False, log_values=False,
-                         dtype_name="float32", scale_kernel=False):
+                         dtype_name="float32"):
     """Compile a mesh-native derived-field render (potential/displacement).
 
     Same sampled realization as :func:`make_sharded_render` for a given
@@ -641,10 +236,9 @@ def make_sharded_derived(mesh: Mesh, shape, spacing, kind, component,
     def fn(key, lk_tab, val_tab, sig, prefactor, smoothing_length):
         if from_seed:
             key = jax.random.key(key)
-        sigmas, stable = (None, sig) if scale_kernel else (sig, None)
         c = _sampled_spectrum(
             key, lk_tab, val_tab, smoothing_length, shape, spacing, mesh,
-            False, log_values, dtype, sigmas=sigmas, stable=stable,
+            False, log_values, dtype, sigmas=sig,
         )
         c = _derived.apply_kernel_inline(
             c, shape, spacing, "xyz", kind, component, prefactor
@@ -658,11 +252,11 @@ def make_sharded_derived(mesh: Mesh, shape, spacing, kind, component,
 @functools.lru_cache(maxsize=32)
 def make_sharded_spectrum_bins(mesh: Mesh, shape, spacing, nbins,
                                from_seed=False, log_values=False,
-                               dtype_name="float32", scale_kernel=False):
+                               dtype_name="float32"):
     """Compile a distributed FFT-free sample_power (config-4 on meshes).
 
     Samples the seed's spectrum exactly like the sharded render (same
-    Threefry draws, inline sigma), then bins |c_k|^2 V shard-locally
+    Threefry draws and sigma), then bins |c_k|^2 V shard-locally
     inside a ``shard_map`` (per-device |k| rebuilt from axis_index
     slices of the 1-D frequency vectors) and psums over the spatial
     axes — the full spectrum is never gathered and no FFT runs.
@@ -717,10 +311,9 @@ def make_sharded_spectrum_bins(mesh: Mesh, shape, spacing, nbins,
     def fn(key, lk_tab, val_tab, sig, smoothing_length):
         if from_seed:
             key = jax.random.key(key)
-        sigmas, stable = (None, sig) if scale_kernel else (sig, None)
         c = _sampled_spectrum(
             key, lk_tab, val_tab, smoothing_length, shape, spacing, mesh,
-            False, log_values, dtype, sigmas=sigmas, stable=stable,
+            False, log_values, dtype, sigmas=sig,
         )
         bins = jax.shard_map(
             _local_bins, mesh=mesh, in_specs=in_spec, out_specs=P(),

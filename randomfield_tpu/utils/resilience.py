@@ -4,7 +4,7 @@ The reference has no failure handling at all (SURVEY.md section 5 —
 single process, seconds-long runs).  At production ensemble scale
 (BASELINE.json config 4: 1024^3-class covariance studies over many
 seeds, possibly multi-host) runs last long enough to meet preemptions,
-wedged device tunnels and transient collective failures, so recovery is
+lost devices and transient collective failures, so recovery is
 a first-class subsystem here.  The design exploits the framework's core
 invariant: FIELDS REGENERATE FROM SEEDS.  Durable state is a tiny
 binned-spectrum checkpoint (validate/ensemble.py), and recovery is

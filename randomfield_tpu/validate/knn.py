@@ -6,8 +6,8 @@ that is sensitive to ALL connected N-point functions at once (the void
 probability function is its k=1, large-r tail) and has become a
 standard beyond-P(k) statistic for galaxy surveys.
 
-TPU-native design: instead of per-query nearest-neighbour searches
-(tree traversals — hostile to the MXU and to static shapes), use the
+Design: instead of per-query nearest-neighbour searches
+(tree traversals — hostile to matmul units and to static shapes), use the
 counting identity
 
     P(d_k <= r) = P(N(< r) >= k)

@@ -12,10 +12,10 @@ with ``delta_R`` the density smoothed on scale ``R``; the marked field
 is ``m(x) * delta(x)`` and its P(k) is measured with the ordinary
 estimator.
 
-TPU-native design: the smoothing is one spectrum multiply inside the
+Design: the smoothing is one spectrum multiply inside the
 same jitted program as the mark evaluation (two transforms total), and
 the measurement reuses :mod:`randomfield_tpu.validate.stats`'s one-hot
-MXU binning — no new estimator machinery.
+matmul binning — no new estimator machinery.
 
 Exactness: for the LINEAR mark ``m = 1 + eps * delta_R`` the marked
 field is ``g = delta + eps * delta_R * delta``, a quadratic functional

@@ -28,11 +28,11 @@ pure sample noise plus the O(dnu^2) threshold-binning bias — no lattice
 discretization systematics (the usual plague of Crofton-type counting
 estimators).
 
-TPU-native design: one forward transform + nine spectral-kernel
+Design: one forward transform + nine spectral-kernel
 inverses build (grad u, Hessian u); the Koenderink curvature invariants
 are pointwise; the delta(u - nu) threshold binning is the same one-hot
-MXU contraction as every other estimator here (scatter-add serializes
-on TPU).
+matmul contraction as every other estimator here (scatter-add
+serializes colliding updates).
 """
 
 from __future__ import annotations
@@ -121,7 +121,7 @@ def _field_invariants(u, shape, spacing):
 def _threshold_bins(u, w1, w2, w3, edges, nbins):
     """Per-threshold-bin (count, sum w1, sum w2, sum w3) + tail counts.
 
-    One one-hot MXU contraction per x-slab (vmapped); also returns the
+    One one-hot matmul contraction per x-slab (vmapped); also returns the
     count of voxels >= each edge (exact, for v0) via the reverse
     cumulative of the counts plus the above-last-edge tail.
     """

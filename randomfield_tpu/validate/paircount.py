@@ -16,9 +16,9 @@ Reference parity: the reference package has no catalog machinery at all
 survey-analysis workflow its users would otherwise reach to
 Corrfunc/nbodykit for.
 
-TPU mapping: the O(N^2) pair distances are chunked ``lax.fori_loop``
+Device mapping: the O(N^2) pair distances are chunked ``lax.fori_loop``
 sweeps of (chunk, N) minimum-image separation blocks on the VPU, and
-the per-bin reduction is the same exact one-hot MXU contraction the
+the per-bin reduction is the same exact one-hot matmul contraction the
 spectral estimators use (validate/stats.py:_dot_bin) — no scatter-adds,
 no host transfers inside the loop.  N ~ 1e5 catalogs (1e10 pairs) run
 in seconds on one chip.
@@ -61,7 +61,7 @@ def _canonical_positions(positions):
 
 
 def _dot_rows(idx, rows, nbins):
-    """Per-bin sums of each row of ``rows`` via one exact one-hot MXU
+    """Per-bin sums of each row of ``rows`` via one exact one-hot matmul
     contraction (validate/stats.py:_dot_bin pattern).  ``idx`` entries
     outside [0, nbins) fall in a discard bin."""
     oh = (idx.ravel()[:, None] == jnp.arange(nbins, dtype=idx.dtype)

@@ -35,7 +35,7 @@ residual discretization bias explicitly; the expectation uses FULL
 because neighbor comparison samples the underlying band-limited field,
 it does not apply a spectral derivative.
 
-TPU-native: the separable neighborhood max is 6 rolls (XLA lowers each
+Device-native: the separable neighborhood max is 6 rolls (XLA lowers each
 to two slices + a concat; under a sharded jit GSPMD turns the wrapped
 edges into halo collective-permutes), so the mesh path is the same
 program with a sharding constraint — slab and pencil both work.

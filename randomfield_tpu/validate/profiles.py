@@ -20,7 +20,7 @@ is closed-form (BBKS 1986 section 7):
   with gamma = sigma1^2/(sigma0 sigma2).  Limits pin the algebra:
   r -> 0 gives nu sigma0, and -lap at 0 gives x sigma2.
 
-TPU-native measurement: the stack over N_sel positions is one FFT
+Device-native measurement: the stack over N_sel positions is one FFT
 cross-correlation — Re[conj(W) D] per mode, one inverse transform,
 then the SAME minimum-image radial binning as xi(r)
 (validate/stats.py) — so the prediction runs the identical binning on

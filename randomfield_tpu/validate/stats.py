@@ -4,7 +4,7 @@ Reference parity: the power estimator assumed in
 ``randomfield/powertools.py:calculate_power`` and the statistical checks
 in ``randomfield/tests/test_generate.py`` (SURVEY.md sections 3.5, 4).
 Runs as a jitted device program (forward rfftn + scatter-add binning) so
-it scales to ensemble validation on TPU; results return as host numpy.
+it scales to ensemble validation on device; results return as host numpy.
 """
 
 from __future__ import annotations
@@ -75,12 +75,11 @@ def _bin_setup(shape, spacing, nbins):
 
 
 def _dot_bin(idx, w, pw, km, nbins):
-    """Per-bin (sum w, sum w*p, sum w*|k|) via a one-hot MXU contraction.
+    """Per-bin (sum w, sum w*p, sum w*|k|) via a one-hot matmul contraction.
 
-    TPU scatter-add serializes colliding updates — binning one 512^3
-    spectrum with ``.at[].add`` measured 1.8 s on a v5e; contracting the
-    same modes against an exact {0,1} one-hot runs in ~50 ms (XLA fuses
-    the one-hot generation into the dot, so it is never materialized).
+    Scatter-add serializes colliding updates; contracting the modes
+    against an exact {0,1} one-hot avoids that (XLA fuses the one-hot
+    generation into the dot, so it is never materialized).
     HIGHEST precision keeps the f32 value operand un-truncated: the
     default bf16 passes bias the power sums by ~0.1%, HIGHEST is within
     ~1e-5 of float64 (and the {0,1} operand is exact in any precision).
@@ -100,7 +99,7 @@ def _masked_bins(km, w, p, edges_j, nbins, per_slab):
 
     log-|k| bin index (searchsorted), overflow-bin masking (out-of-range
     |k|, the DC mode, and zero-weight entries such as kz pad columns),
-    then the one-hot MXU contraction (:func:`_dot_bin`).  ``w`` may be a
+    then the one-hot matmul contraction (:func:`_dot_bin`).  ``w`` may be a
     scalar or broadcastable multiplicity.  ``per_slab=True`` vmaps the
     contraction over axis 0 so partial sums stay short (the f32
     sequential-accumulation concern, see _mean_axiswise); ``False``
@@ -440,7 +439,7 @@ def calculate_power_multipoles(delta, spacing, nbins=32, ells=(0, 2, 4),
 def _wedge_bin_core(km, mu, wb, p, edges_j, nbins, nmu):
     """Joint (|k|, |mu|) binning core shared by every wedge variant:
     combined bin index ``k_idx * nmu + mu_idx`` through the same
-    one-hot MXU contraction as :func:`_dot_bin`, with the estimator's
+    one-hot matmul contraction as :func:`_dot_bin`, with the estimator's
     k edges, Hermitian multiplicities and masks.  Wedges are uniform in
     |mu| on [0, 1] (mu = |k_los|/|k| suffices — the conjugate mode has
     the same |mu|, which is why the half-grid multiplicities apply
@@ -716,31 +715,44 @@ def _make_sharded_binned(mesh, shape, spacing, nbins, order=0):
     wy = _sinc_half(ky, spacing) ** order
     wz = _sinc_half(kz, spacing) ** order
 
+    # the shard is binned in x-chunks under lax.map, so the per-mode
+    # temporaries (|k|, bin index, weights) stay chunk-sized
+    chunks = next(c for c in range(min(16, nx), 0, -1) if nx % c == 0)
+
     def _local_bins(cl):
         # cl: (nx, ny/P, nzh) local block of the packed spectrum
         j = jax.lax.axis_index(SPACE_AXIS)
         ky_l = jax.lax.dynamic_slice(jnp.asarray(ky), (j * ny_loc,), (ny_loc,))
-        km = jnp.sqrt(
-            jnp.asarray(kx * kx)[:, None, None]
-            + (ky_l * ky_l)[None, :, None]
-            + jnp.asarray(kz * kz)[None, None, :]
-        ).astype(cl.real.dtype)
-        p = (cl.real**2 + cl.imag**2) * (spacing**3) ** 2 / volume
-        if order:
-            wy_l = jax.lax.dynamic_slice(
-                jnp.asarray(wy), (j * ny_loc,), (ny_loc,)
-            )
-            w2 = (
-                jnp.asarray(wx)[:, None, None]
-                * wy_l[None, :, None]
-                * jnp.asarray(wz)[None, None, :]
-            ) ** 2
-            p = p / w2.astype(p.dtype)
-        counts, psum_, ksum = _masked_bins(
-            jnp.broadcast_to(km, p.shape), jnp.asarray(mult)[None, None, :],
-            p, jnp.asarray(edges, p.dtype), nbins, per_slab=True,
-        )
-        return jax.lax.psum(jnp.stack([counts, psum_, ksum]), SPACE_AXIS)
+        wy_l = jax.lax.dynamic_slice(jnp.asarray(wy), (j * ny_loc,), (ny_loc,))
+
+        def one(args):
+            c, kxc, wxc = args
+            km = jnp.sqrt(
+                (kxc * kxc)[:, None, None]
+                + (ky_l * ky_l)[None, :, None]
+                + jnp.asarray(kz * kz)[None, None, :]
+            ).astype(c.real.dtype)
+            p = (c.real**2 + c.imag**2) * (spacing**3) ** 2 / volume
+            if order:
+                w2 = (
+                    wxc[:, None, None]
+                    * wy_l[None, :, None]
+                    * jnp.asarray(wz)[None, None, :]
+                ) ** 2
+                p = p / w2.astype(p.dtype)
+            return jnp.stack(_masked_bins(
+                jnp.broadcast_to(km, p.shape),
+                jnp.asarray(mult)[None, None, :], p,
+                jnp.asarray(edges, p.dtype), nbins, per_slab=True,
+            ))
+
+        cx = nx // chunks
+        parts = jax.lax.map(one, (
+            cl.reshape(chunks, cx, *cl.shape[1:]),
+            jnp.asarray(kx).reshape(chunks, cx),
+            jnp.asarray(wx).reshape(chunks, cx),
+        ))
+        return jax.lax.psum(jnp.sum(parts, axis=0), SPACE_AXIS)
 
     @jax.jit
     def fn(delta):
@@ -1117,9 +1129,6 @@ def _binned_spectrum_reim(cre, cim, shape, spacing, nbins, layout):
     |k| is rebuilt per x-slab from 1-D frequency vectors inside a
     lax.map body — a precomputed |k| cube at 1024^3 would bake a >4 GB
     constant into the executable (resident HBM + minutes of transfer).
-    Shared by the complex wrapper above and the fused Pallas
-    sample+bin program (engine/staged.py:sample_power_v3), which never
-    forms a complex spectrum.
     """
     nx, ny, nz = shape
     volume = nx * ny * nz * spacing**3
@@ -2201,8 +2210,8 @@ def predicted_correlation(power, shape, spacing, nbins=24,
 
 @functools.partial(jax.jit, static_argnames=("nbins",))
 def _binned_values(x, edges, nbins):
-    """Histogram + per-bin value sums via the one-hot MXU contraction
-    (scatter-add serializes on TPU; see _dot_bin)."""
+    """Histogram + per-bin value sums via the one-hot matmul contraction
+    (scatter-add serializes colliding updates; see _dot_bin)."""
     # np.histogram semantics: bins are left-inclusive, the last bin also
     # includes the right edge (side='right' keeps x == vmin in bin 0)
     idx = jnp.searchsorted(edges, x, side="right", method="compare_all") - 1
@@ -2335,9 +2344,9 @@ def predicted_cell_variance(power, shape, spacing, m,
 def _mean_axiswise(x):
     """Mean via one axis at a time — each reduction sums only O(n) terms.
 
-    A flat f32 mean over ~10^8+ elements on TPU accumulates sequentially
-    enough to saturate the mantissa (measured: -11% at 256^3, -24% at
-    512^3 for x^2 sums); per-axis reductions keep every partial sum short
+    A flat f32 mean over ~10^8+ elements can accumulate sequentially
+    enough to saturate the mantissa (biasing x^2 sums low by tens of
+    percent at 512^3); per-axis reductions keep every partial sum short
     so the bias is O(n * eps) instead.
     """
     while x.ndim:

@@ -13,7 +13,7 @@ measure-vs-exactly-predict pairing:
 - MEASURE from a rendered (delta, velocity) pair: one forward transform
   each, the per-mode cross spectrum conj(delta_k) v_k, an inverse
   transform per component, projection onto the signed minimum-image
-  separation direction, and |r|-shell binning (the same one-hot MXU
+  separation direction, and |r|-shell binning (the same one-hot matmul
   binning core as every other estimator, validate/stats.py:_masked_bins).
 - PREDICT exactly: the engine's velocity kernel is v_k = i a H f
   delta_k k / k^2 (ops/derived.py:delta_to_velocity), so the expected

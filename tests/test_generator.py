@@ -129,18 +129,20 @@ def test_invalid_pipeline_rejected_even_with_mesh():
 
 
 def test_pallas_sampler_mesh_capability_gate():
+    # the hardware-PRNG sampler is gone: every scene that asks for it,
+    # on one device or on a slab or pencil mesh, gets a ValueError that
+    # points at the Threefry default
     from randomfield_tpu.parallel.mesh import make_mesh
-
-    mesh = make_mesh(data=2, space=4)
-    # incapable shape (ny not a multiple of 128 * space) still raises
-    with pytest.raises(ValueError, match="can_mesh_pallas"):
-        Generator(8, 8, 8, grid_spacing=8.0, mesh=mesh, sampler="pallas")
-    # pencil meshes gate on whole 128-lane y tiles per 'spx' shard
     from randomfield_tpu.parallel.pencil import make_pencil_mesh
 
+    with pytest.raises(ValueError, match="threefry"):
+        Generator(8, 8, 8, grid_spacing=8.0, sampler="pallas")
+    mesh = make_mesh(data=2, space=4)
+    with pytest.raises(ValueError, match="threefry"):
+        Generator(8, 8, 8, grid_spacing=8.0, mesh=mesh, sampler="pallas")
     pmesh = make_pencil_mesh(data=2, spx=2, spy=2)
-    with pytest.raises(ValueError, match="can_mesh_pallas"):
-        Generator(128, 128, 256, grid_spacing=8.0, mesh=pmesh,
+    with pytest.raises(ValueError, match="threefry"):
+        Generator(16, 16, 16, grid_spacing=8.0, mesh=pmesh,
                   sampler="pallas")
 
 

@@ -174,6 +174,8 @@ def test_noise_export_roundtrip():
 
 
 def test_noise_export_rejects_pallas_and_staged():
+    with pytest.raises(ValueError, match="threefry"):
+        Generator(16, 16, 16, grid_spacing=8.0, sampler="pallas")
     g = Generator(16, 16, 16, grid_spacing=8.0, pipeline="staged")
     with pytest.raises(ValueError, match="fused"):
         g.generate_noise(0)

@@ -172,160 +172,6 @@ def test_sharded_power_estimator_matches_single_device():
     np.testing.assert_allclose(p1[mask], p0[mask], rtol=2e-4)
 
 
-@pytest.mark.parametrize("space,batched", [(1, False), (4, False), (2, True)])
-def test_irfftn_slab_pallas_matches_native(space, batched, monkeypatch):
-    """The Pallas-kernel slab path (RF_MESH_PALLAS=1, Mosaic interpreter
-    on CPU) equals the native slab path and numpy, weights fused."""
-    monkeypatch.setenv("RF_MESH_PALLAS", "1")
-    mesh = _mesh(1, space)
-    shape = (128, 128, 256)
-    assert dfft.can_pallas_slab(shape)
-    rng = np.random.RandomState(3)
-    x = rng.normal(size=shape).astype(np.float32)
-    c_np = np.fft.rfftn(x).astype(np.complex64)
-    wz = rng.uniform(0.5, 1.5, size=(256,)).astype(np.float32)
-    ref = np.fft.irfftn(c_np, axes=(0, 1, 2), norm="forward")
-
-    if batched:
-        c = jnp.stack([jnp.asarray(c_np), 0.5 * jnp.asarray(c_np)])
-        out = jax.jit(
-            lambda c: dfft.irfftn_slab(
-                c, shape, mesh, batched=True, assume_hermitian=True,
-                weights=jnp.asarray(wz),
-            )
-        )(c)
-        want = ref * wz[None, None, :]
-        scale = np.abs(ref).std()
-        np.testing.assert_allclose(np.asarray(out[0]), want,
-                                   atol=2e-5 * scale, rtol=2e-4)
-        np.testing.assert_allclose(np.asarray(out[1]), 0.5 * want,
-                                   atol=2e-5 * scale, rtol=2e-4)
-        return
-    c = jnp.asarray(c_np)
-    out = jax.jit(
-        lambda c: dfft.irfftn_slab(
-            c, shape, mesh, assume_hermitian=True, weights=jnp.asarray(wz)
-        )
-    )(c)
-    monkeypatch.setenv("RF_MESH_PALLAS", "0")
-    native = jax.jit(
-        lambda c: dfft.irfftn_slab(
-            c, shape, mesh, assume_hermitian=True, weights=jnp.asarray(wz)
-        )
-    )(c)
-    scale = np.abs(ref).std()
-    np.testing.assert_allclose(np.asarray(out), ref * wz[None, None, :],
-                               atol=2e-5 * scale, rtol=2e-4)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(native),
-                               atol=2e-5 * scale, rtol=2e-4)
-
-
-def test_mesh_render_reim_pallas_matches_single_device(monkeypatch):
-    """Generator mesh renders through the re/im-native Pallas slab path
-    (RF_MESH_PALLAS=1, Mosaic interpreter on CPU) must equal the
-    single-device fused render: same canonical Threefry stream, FFT
-    kernels agree to ~1e-6."""
-    import randomfield_tpu as rf
-    from randomfield_tpu.parallel import render as prender
-
-    monkeypatch.setenv("RF_MESH_PALLAS", "1")
-    shape = (128, 128, 256)
-    mesh = _mesh(1, 4)
-    assert prender._use_reim_mesh(mesh, shape)
-    gm = rf.Generator(*shape, grid_spacing=8.0, mesh=mesh)
-    g0 = rf.Generator(*shape, grid_spacing=8.0, pipeline="fused")
-    for seed, sm in ((3, 0.0), (5, 16.0)):
-        got = np.asarray(gm.generate_delta_field(seed, smoothing_length=sm))
-        ref = np.asarray(g0.generate_delta_field(seed, smoothing_length=sm))
-        scale = np.abs(ref).std()
-        np.testing.assert_allclose(got, ref, atol=5e-4 * scale, rtol=5e-4)
-    # batched
-    got = np.asarray(gm.generate_delta_fields([3, 9]))
-    ref = np.asarray(g0.generate_delta_fields([3, 9]))
-    scale = np.abs(ref).std()
-    np.testing.assert_allclose(got, ref, atol=5e-4 * scale, rtol=5e-4)
-
-
-def test_mesh_pallas_render_matches_single_device_kernel():
-    """Mesh hardware-sampler render (interpret mode on CPU: stubbed
-    PRNG, real sigma-interp/index/symmetrize/transform arithmetic) must
-    equal the single-device xzy sampling kernel + numpy inverse."""
-    import randomfield_tpu as rf
-    from randomfield_tpu.ops.pallas_sampler import (
-        make_sigma_table, sample_spectrum_pallas_reim,
-    )
-
-    shape = (128, 256, 256)
-    mesh = _mesh(1, 2)
-    g = rf.Generator(*shape, grid_spacing=8.0, mesh=mesh, sampler="pallas")
-    got = np.asarray(
-        g.generate_delta_field(seed=5, apply_lightcone=False)
-    )
-
-    tab = make_sigma_table(g._aux["power"], shape, 8.0, layout="xzy")
-    re, im = sample_spectrum_pallas_reim(5, tab, shape, 8.0, interpret=True)
-    c = np.asarray(re) + 1j * np.asarray(im)         # (nx, nzh, ny)
-    c = np.transpose(c, (0, 2, 1))                   # (nx, ny, nzh)
-    ref = np.fft.irfftn(c, s=shape, axes=(0, 1, 2), norm="forward")
-    scale = max(np.abs(ref).std(), 1e-12)
-    np.testing.assert_allclose(got, ref, atol=5e-4 * scale, rtol=5e-4)
-
-    # smoothing + lightcone weights ride the same program
-    got2 = np.asarray(
-        g.generate_delta_field(seed=5, smoothing_length=16.0)
-    )
-    assert np.isfinite(got2).all()
-    # lightcone z-weights ride the fused c2r tail
-    w = np.asarray(g.growth_function, np.float32)
-    gotw = np.asarray(g.generate_delta_field(seed=5, apply_lightcone=True))
-    np.testing.assert_allclose(
-        gotw, ref * w[None, None, :], atol=5e-4 * scale, rtol=5e-4
-    )
-    # derived/estimator programs reject the hardware-sampler family
-    import pytest as _pytest
-
-    with _pytest.raises(ValueError, match="threefry"):
-        g.sample_power(seed=1, nbins=8)
-
-
-def test_mesh_pallas_batch_matches_singles():
-    """The data-parallel batched mesh-pallas program gives per-seed
-    fields identical to single renders (same global-stream tiles)."""
-    import randomfield_tpu as rf
-
-    shape = (128, 256, 256)
-    mesh = _mesh(2, 2)
-    g = rf.Generator(*shape, grid_spacing=8.0, mesh=mesh, sampler="pallas")
-    batch = np.asarray(g.generate_delta_fields([3, 9]))
-    for i, s in enumerate((3, 9)):
-        single = np.asarray(g.generate_delta_field(seed=s))
-        np.testing.assert_array_equal(batch[i], single)
-
-
-@pytest.mark.parametrize("space", [1, 4])
-def test_rfftn_slab_pallas_matches_native(space, monkeypatch):
-    """Forward Pallas slab path (conjugation-identity CT kernels,
-    Mosaic interpreter on CPU) equals the native path and numpy."""
-    monkeypatch.setenv("RF_MESH_PALLAS", "1")
-    mesh = _mesh(1, space)
-    shape = (128, 128, 256)
-    rng = np.random.RandomState(11)
-    x = rng.normal(size=shape).astype(np.float32)
-    ref = np.fft.rfftn(x)
-    out = jax.jit(
-        lambda x: dfft.rfftn_slab(x, shape, mesh)
-    )(jnp.asarray(x))
-    monkeypatch.setenv("RF_MESH_PALLAS", "0")
-    native = jax.jit(
-        lambda x: dfft.rfftn_slab(x, shape, mesh)
-    )(jnp.asarray(x))
-    scale = np.abs(ref).std()
-    np.testing.assert_allclose(np.asarray(out), ref,
-                               atol=3e-5 * scale, rtol=3e-4)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(native),
-                               atol=3e-5 * scale, rtol=3e-4)
-
-
 def test_mesh_cross_and_masked_power_match_single_device():
     import randomfield_tpu as rf
     from randomfield_tpu.parallel.pencil import make_pencil_mesh
@@ -363,7 +209,7 @@ def test_mesh_render_production_shard_geometry():
     """One >= 256^3 render on the 8-virtual-device CPU mesh (VERDICT r4
     item 2): non-degenerate production-like shard tiles (64x256x129
     complex per shard at space=4) through the full sharded program —
-    catches padding/tile/VMEM-class defects the 32^3 dryrun cannot.
+    catches padding/tile-class defects the 32^3 dryrun cannot.
     Gated statistically (variance + P(k)) rather than bit-wise: a 256^3
     single-device reference render on CPU is the slow part."""
     import randomfield_tpu as rf

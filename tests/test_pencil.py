@@ -222,105 +222,6 @@ def test_pencil_power_multipoles_match_single_device(los_axis):
     )
 
 
-def test_irfftn_pencil_pallas_matches_native(monkeypatch):
-    """Pallas pencil path (Mosaic interpreter on CPU): both input
-    layouts, weights fused, vs native path and numpy."""
-    import os
-
-    from randomfield_tpu.parallel import pencil as pc
-
-    monkeypatch.setenv("RF_MESH_PALLAS", "1")
-    shape = (128, 128, 256)
-    rng = np.random.RandomState(5)
-    x = rng.normal(size=shape).astype(np.float32)
-    c_np = np.fft.rfftn(x).astype(np.complex64)
-    wz = rng.uniform(0.5, 1.5, size=(256,)).astype(np.float32)
-    ref = np.fft.irfftn(c_np, axes=(0, 1, 2), norm="forward")
-    # data=1: the CPU interpreter's host callbacks deadlock under
-    # shard_map when any mesh axis goes unmentioned (dfft.use_pallas_local)
-    mesh = pc.make_pencil_mesh(data=1, spx=2, spy=2)
-    c = jnp.asarray(c_np)
-    scale = np.abs(ref).std()
-    for layout in ("state0", "state1"):
-        out = jax.jit(
-            lambda c: pc.irfftn_pencil(
-                c, shape, mesh, assume_hermitian=True, input_layout=layout,
-                weights=jnp.asarray(wz),
-            )
-        )(c)
-        np.testing.assert_allclose(
-            np.asarray(out), ref * wz[None, None, :],
-            atol=2e-5 * scale, rtol=2e-4,
-        )
-    monkeypatch.setenv("RF_MESH_PALLAS", "0")
-    native = jax.jit(
-        lambda c: pc.irfftn_pencil(
-            c, shape, mesh, assume_hermitian=True, input_layout="state0",
-            weights=jnp.asarray(wz),
-        )
-    )(c)
-    np.testing.assert_allclose(
-        np.asarray(native), ref * wz[None, None, :],
-        atol=2e-5 * scale, rtol=2e-4,
-    )
-
-
-def test_rfftn_pencil_pallas_matches_native(monkeypatch):
-    """Forward Pallas pencil path equals the native path and numpy."""
-    from randomfield_tpu.parallel import pencil as pc
-
-    monkeypatch.setenv("RF_MESH_PALLAS", "1")
-    shape = (128, 128, 256)
-    mesh = pc.make_pencil_mesh(data=1, spx=2, spy=2)
-    rng = np.random.RandomState(13)
-    x = rng.normal(size=shape).astype(np.float32)
-    ref = np.fft.rfftn(x)
-    out = jax.jit(
-        lambda x: pc.rfftn_pencil(x, shape, mesh)
-    )(jnp.asarray(x))
-    monkeypatch.setenv("RF_MESH_PALLAS", "0")
-    native = jax.jit(
-        lambda x: pc.rfftn_pencil(x, shape, mesh)
-    )(jnp.asarray(x))
-    scale = np.abs(ref).std()
-    np.testing.assert_allclose(np.asarray(out), ref,
-                               atol=3e-5 * scale, rtol=3e-4)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(native),
-                               atol=3e-5 * scale, rtol=3e-4)
-
-
-def test_pencil_mesh_pallas_render_matches_single_device_kernel():
-    """Pencil hardware-sampler render (interpret mode on CPU) equals
-    the single-device xzy kernel + numpy inverse — the pencil shards
-    sample the same GLOBAL stream by global (row, lane-tile) ids."""
-    import randomfield_tpu as rf
-    from randomfield_tpu.ops.pallas_sampler import (
-        make_sigma_table, sample_spectrum_pallas_reim,
-    )
-    from randomfield_tpu.parallel.pencil import make_pencil_mesh
-
-    shape = (128, 256, 256)
-    mesh = make_pencil_mesh(data=1, spx=2, spy=2)
-    g = rf.Generator(*shape, grid_spacing=8.0, mesh=mesh, sampler="pallas")
-    got = np.asarray(
-        g.generate_delta_field(seed=5, apply_lightcone=False)
-    )
-    tab = make_sigma_table(g._aux["power"], shape, 8.0, layout="xzy")
-    re, im = sample_spectrum_pallas_reim(5, tab, shape, 8.0, interpret=True)
-    c = np.asarray(re) + 1j * np.asarray(im)
-    c = np.transpose(c, (0, 2, 1))
-    ref = np.fft.irfftn(c, s=shape, axes=(0, 1, 2), norm="forward")
-    scale = max(np.abs(ref).std(), 1e-12)
-    np.testing.assert_allclose(got, ref, atol=5e-4 * scale, rtol=5e-4)
-    # batched program gives identical per-seed fields
-    batch = np.asarray(g.generate_delta_fields([5, 8]))
-    single = np.asarray(g.generate_delta_field(seed=8))
-    np.testing.assert_array_equal(
-        batch[0], np.asarray(g.generate_delta_field(seed=5))
-    )
-    np.testing.assert_array_equal(batch[1], single)
-
-
 @pytest.mark.slow
 def test_pencil_render_production_shard_geometry():
     """256^3 on a (2, 2, 2) pencil mesh: non-degenerate (x, y) block

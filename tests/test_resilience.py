@@ -40,7 +40,7 @@ def test_retry_transient_recovers_and_reinits():
     def fn():
         calls["n"] += 1
         if calls["n"] < 3:
-            raise _FakeRuntimeError("UNAVAILABLE: tunnel wedged")
+            raise _FakeRuntimeError("UNAVAILABLE: device lost")
         return "ok"
 
     out = rz.retry_transient(

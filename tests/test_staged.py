@@ -166,137 +166,3 @@ def test_odd_grid_staged_falls_back_to_v1():
     d = np.asarray(g.generate_delta_field(3))
     assert d.shape == (12, 12, 15)
     assert np.isfinite(d).all()
-
-
-def test_v5_closing_transpose_equals_digit_gathers():
-    # the v5 closing step replaces two take() digit-fix gathers + a
-    # transpose with ONE 5-D transpose; pin the index math on CPU
-    from randomfield_tpu.ops.pallas_fft import digit_perm
-
-    nzh, nx, ny = 5, 256, 384
-    ax, ay = nx // 128, ny // 128
-    rng = np.random.RandomState(0)
-    g = jnp.asarray(rng.normal(size=(nzh, nx, ny)).astype(np.float32))
-
-    ref = jnp.take(g, jnp.asarray(digit_perm(nx)), axis=1)
-    ref = jnp.take(ref, jnp.asarray(digit_perm(ny)), axis=2)
-    ref = ref.transpose(1, 2, 0)  # (nx, ny, nzh) natural
-
-    got = (
-        g.reshape(nzh, ax, 128, ay, 128)
-        .transpose(2, 1, 4, 3, 0)
-        .reshape(nx, ny, nzh)
-    )
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-
-def test_can_v5():
-    from randomfield_tpu.engine.staged import can_v5
-
-    assert can_v5((256, 256, 256))
-    assert can_v5((1024, 1024, 1024))
-    assert can_v5((512, 256, 1024))
-    assert not can_v5((256, 256, 128))   # nz//2 = 64 not Pallas-able
-    assert not can_v5((96, 256, 256))    # nx not a multiple of 128
-    assert not can_v5((256, 256, 255))   # odd nz
-
-
-def test_can_batch_staged_budget():
-    from randomfield_tpu.engine.staged import can_batch_staged
-
-    assert can_batch_staged((512, 512, 512), 16)
-    assert not can_batch_staged((1024, 1024, 1024), 4)
-    assert can_batch_staged((256, 256, 256), 64)
-
-
-def test_stage_p1_unit_plus_pallas_scale_matches_p1():
-    # the tableless v3-threefry entry (unit draws + in-place Pallas
-    # sigma-interp scale, interpret mode on CPU) must reproduce the
-    # canonical _stage_p1 spectrum to table-resampling accuracy
-    from randomfield_tpu.engine.staged import _stage_p1, _stage_p1_unit
-    from randomfield_tpu.ops.grid import kvectors
-    from randomfield_tpu.ops.pallas_sampler import (
-        make_sigma_table, scale_spectrum_pallas_reim,
-    )
-
-    shape, spacing = (16, 16, 16), 8.0
-    for smoothing in (0.0, 12.0):
-        g = Generator(*shape, grid_spacing=spacing, pipeline="staged")
-        key = jax.random.key(11)
-        kx, ky, kz = kvectors(shape, spacing, jnp.float32)
-        ref = np.asarray(
-            _stage_p1(shape, spacing, "float32")(
-                key, g.sigmas, jnp.float32(smoothing), kx, kz, ky
-            )
-        )
-        tab = make_sigma_table(
-            g._aux["power"], shape, spacing, layout="xzy"
-        )
-        re, im = _stage_p1_unit(shape, "float32")(key)
-        re, im = scale_spectrum_pallas_reim(
-            re, im, tab, shape, spacing, jnp.float32(smoothing),
-            interpret=True,
-        )
-        got = np.asarray(re) + 1j * np.asarray(im)
-        scale = np.abs(ref).max()
-        np.testing.assert_allclose(got, ref, atol=3e-4 * scale, rtol=3e-4)
-
-
-def test_pallas_scale_kernel_matches_tabulated_sigmas():
-    # kernel sigma-interp vs the materialized tabulate_sigmas grid on
-    # arbitrary lattices (pure arithmetic: PRNG-free, so interpret mode
-    # exercises the real math)
-    from randomfield_tpu.ops.pallas_sampler import (
-        make_sigma_table, scale_spectrum_pallas_reim,
-    )
-    from randomfield_tpu.ops import power as _power
-    from randomfield_tpu.ops.grid import kvectors
-
-    shape, spacing, sm = (8, 16, 12), 4.0, 6.0
-    g = Generator(*shape, grid_spacing=spacing)
-    sig = np.asarray(
-        _power.tabulate_sigmas(
-            shape, spacing, g._aux["power"], "log10k", jnp.float32,
-            layout="xzy",
-        )
-    )
-    kx, ky, kz = (np.asarray(v) for v in kvectors(shape, spacing))
-    k2 = (
-        (kx * kx)[:, None, None]
-        + (kz[: shape[2] // 2 + 1] ** 2)[None, :, None]
-        + (ky * ky)[None, None, :]
-    )
-    rng = np.random.RandomState(2)
-    re0 = rng.normal(size=sig.shape).astype(np.float32)
-    im0 = rng.normal(size=sig.shape).astype(np.float32)
-    tab = make_sigma_table(g._aux["power"], shape, spacing, layout="xzy")
-    re, im = scale_spectrum_pallas_reim(
-        jnp.asarray(re0), jnp.asarray(im0), tab, shape, spacing,
-        jnp.float32(sm), interpret=True,
-    )
-    amp = sig * np.exp(-0.5 * k2 * sm * sm)
-    np.testing.assert_allclose(
-        np.asarray(re), re0 * amp, atol=3e-4 * np.abs(amp).max(), rtol=3e-4
-    )
-    np.testing.assert_allclose(
-        np.asarray(im), im0 * amp, atol=3e-4 * np.abs(amp).max(), rtol=3e-4
-    )
-
-
-def test_staged_threefry_v3_scene_is_lazy(monkeypatch):
-    # with the tableless path active the scene must not tabulate a sigma
-    # grid; the .sigmas property materializes one lazily and
-    # predicted_variance works without it
-    from randomfield_tpu.engine import staged as st
-
-    monkeypatch.setattr(st, "_use_v3", lambda shape: True)
-    g = Generator(16, 16, 16, grid_spacing=8.0, pipeline="staged")
-    assert g._staged_threefry_v3
-    assert g.state.sigmas is None
-    pv = g.predicted_variance()
-    assert np.isfinite(pv) and pv > 0
-    sig = g.sigmas
-    assert sig is not None and sig.shape == (16, 9, 16)
-    g2 = Generator(16, 16, 16, grid_spacing=8.0, pipeline="staged")
-    ref = np.asarray(g2.sigmas)
-    np.testing.assert_allclose(np.asarray(sig), ref, rtol=1e-6)
